@@ -1,0 +1,90 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
+a plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
+build takes seconds.  Libraries go to ``build/kernels/`` at the repository
+root (listed in ``.gitignore``), named by a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is loaded as
+is.  Nothing is built at import: the first launch builds.
+
+Counts (read by :mod:`repro_torch.telemetry.compile_stats`):
+``BUILD_COUNT["nvcc"]`` — libraries compiled in this process;
+``BUILD_COUNT["loaded"]`` — libraries loaded in this process.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "BUILD_COUNT", "library_path",
+           "build", "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+# float32 as written: no --use_fast_math; the kernels pin their rounding
+# with explicit *_rn intrinsics, so FMA contraction cannot change them.
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+BUILD_COUNT = {"nvcc": 0, "loaded": 0}
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return str(path)
+
+
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` lives for this source."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that is not built yet, all in parallel.
+
+    Returns name -> library path.  ``nvcc``'s ``-Xptxas -v`` report
+    (registers, shared memory, spills) is kept beside each library as
+    ``<library>.log``.
+    """
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp)
+    for name, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        paths[name].with_suffix(".so.log").write_text(log)
+        os.replace(tmp, paths[name])
+        BUILD_COUNT["nvcc"] += 1
+    return paths
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LOADED:
+        _LOADED[name] = ctypes.CDLL(str(build([name])[name]))
+        BUILD_COUNT["loaded"] += 1
+    return _LOADED[name]
