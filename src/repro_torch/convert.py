@@ -2,13 +2,15 @@
 
 A network and its state are this system's weights: the topology, the link
 parameters, the controller and simulation configs, and a prior result
-used as ``init=``.  Each converter reads the reference object by attribute
-(duck typing, so this module imports nothing of ``repro``) and returns the
-port's type with numpy arrays, which both packages then consume
-unchanged::
+used as ``init=``; a scenario (its events) and a reframing policy carry a
+dynamic run across the same way.  Each converter reads the reference
+object by attribute (duck typing, so this module imports nothing of
+``repro``) and returns the port's type with numpy arrays, which both
+packages then consume unchanged::
 
     topo_t = convert.topology(repro_topo)
     res_t = simulate(topo_t, convert.links(repro_links), ...)
+    run_scenario(topo_t, ..., convert.scenario(repro_scenario), ...)
 """
 from __future__ import annotations
 
@@ -18,9 +20,12 @@ import numpy as np
 
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.frame_model import LinkParams, SimConfig
+from repro_torch.core.reframing import ReframePolicy
 from repro_torch.core.topology import Topology
+from repro_torch.scenarios import events as _events
 
-__all__ = ["topology", "links", "controller", "sim_config", "init_state"]
+__all__ = ["topology", "links", "controller", "sim_config", "init_state",
+           "event", "scenario", "reframe_policy"]
 
 
 def topology(obj) -> Topology:
@@ -63,3 +68,30 @@ def init_state(obj):
     if getattr(obj, "nu", None) is None:
         raise ValueError("init object carries no exact final .nu")
     return np.array(obj[1], np.float32), np.array(obj.nu, np.float32)
+
+
+# The port's event types, by the reference's class names.
+_EVENT_TYPES = {name: getattr(_events, name) for name in (
+    "Mark", "LatencyStep", "FreqStep", "DriftRamp", "NodeHoldover",
+    "NodeReset", "LinkDrop", "LinkRestore", "Reframe")}
+
+
+def event(obj):
+    """A reference scenario event (``LatencyStep``, ``FreqStep``, …): the
+    port's event of the same class name with the same field values."""
+    cls = _EVENT_TYPES.get(type(obj).__name__)
+    if cls is None:
+        raise TypeError(f"no scenario event type {type(obj).__name__!r} in "
+                        "repro_torch.scenarios")
+    return cls(**_fields(cls, obj))
+
+
+def scenario(obj) -> _events.Scenario:
+    """A reference ``Scenario`` (its events converted one by one)."""
+    return _events.Scenario(events=tuple(event(ev) for ev in obj.events),
+                            name=str(obj.name))
+
+
+def reframe_policy(obj) -> ReframePolicy:
+    """A reference ``ReframePolicy``."""
+    return ReframePolicy(**_fields(ReframePolicy, obj))

@@ -17,14 +17,16 @@ class EngineOptions:
     """How to run an engine (everything that is not *what to observe*).
 
     Attributes:
-      engine: lane name — "auto" dispatches by shape; "fused" is the lane
-        this port has.  "tiled", "sparse" and "per-step" raise
-        ``NotImplementedError`` until their kernels are ported.
+      engine: lane name — "auto" dispatches by shape (the H100 regime
+        table); "fused" and "tiled" are the dense lanes this port has,
+        and ``run_scenario`` also takes "segment-sum" (its default).
+        "sparse" and "per-step" raise ``NotImplementedError`` until their
+        kernels are ported.
       interpret: the reference's switch for the Pallas interpreter.  The
         port has no interpreter: a truthy value raises (pass
         ``device="cpu"`` to run the plain PyTorch versions instead).
-      chunk_records: records per kernel launch in the scenario runner,
-        which this port does not have yet; a value raises here.
+      chunk_records: records per engine call in the scenario runner
+        (``run_scenario``); the single-call runners raise on it.
     """
 
     engine: str = "auto"
@@ -37,8 +39,9 @@ class EngineOutputs(NamedTuple):
 
     ``freq`` is the decimated ν record stream; ``psi`` / ``nu`` the final
     carried state; ``beta`` / ``watermarks`` are ``None`` unless
-    requested; ``guard_state`` stays ``None`` until the in-kernel guard is
-    ported with the scenario layer.
+    requested; ``guard_state`` is the (B, 1) int32 first-trip record of the
+    in-kernel reframing guard (``num_records`` where a draw never tripped)
+    or ``None`` without the guard.
     """
 
     psi: Any

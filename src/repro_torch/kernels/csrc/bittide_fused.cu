@@ -14,7 +14,11 @@
 //
 // and at every record point it writes nu, optionally the per-node net
 // occupancy of the post-update state with psi centred by its row mean
-// (beta), and optionally folds that into per-node watermarks.
+// (beta), optionally folds that into per-node watermarks, and optionally
+// runs the reframing guard: a draw trips at the first record at which any
+// node's net occupancy leaves the degree-scaled band
+// [guard_lo[b]*deg_i, guard_hi[b]*deg_i], and records after guard_stop
+// are not run.
 //
 // Design.  The TPU kernel carries the state in VMEM scratch across ordered
 // grid steps.  Here a period of draw b needs every node of draw b and
@@ -28,6 +32,14 @@
 // addresses, from shared memory if C*N*N*4 bytes fit beside the state,
 // else from global memory (L2-resident: one copy serves every CTA).
 // Watermarks are register aggregates written once at the end.
+//
+// Guard.  The reference freezes the WHOLE batch at the earliest trip.  A
+// CTA here cannot see another CTA's trip in time, so each draw freezes at
+// its own first trip (or after guard_stop) and writes its trip record
+// (num_records when it never tripped).  The wrapper takes t* = min over
+// draws and, when a draw ran past t*, launches the chunk once more from
+// the same inputs with guard_stop = t*.  A draw's bits do not depend on the
+// batch, so that replay is the batch-wide freeze bit for bit.
 //
 // Numbers.  float32 throughout.  Every product and sum is an explicit
 // round-to-nearest intrinsic (__fmul_rn / __fadd_rn / __fsub_rn /
@@ -65,9 +77,11 @@ struct Params {
   const float* deg;       // (N,)
   const float* lamsum;    // (B, N)
   const float* lat;       // (B, C)
+  const float* guard_lo;  // (B,) or null: guard band, frames per degree
+  const float* guard_hi;  // (B,)
   float dt_frames;
   int B, N, C, mask_rows, num_records, record_every, draws_per_cta;
-  int a_in_smem;
+  int a_in_smem, guard_stop;
   float* psi_out;         // (B, N)
   float* nu_out;          // (B, N)
   float* freq;            // (R, B, N) nu records
@@ -76,9 +90,10 @@ struct Params {
   int* wm_idx;
   float* wm_lo;
   float* wm_hi;
+  int* trip;              // (B,) first trip record, or null
 };
 
-template <bool kBeta, bool kWm>
+template <bool kBeta, bool kWm, bool kGuard>
 __global__ void bittide_fused_kernel(const Params p) {
   extern __shared__ float smem[];
   const int N = p.N, C = p.C, G = p.draws_per_cta;
@@ -92,9 +107,10 @@ __global__ void bittide_fused_kernel(const Params p) {
   float* s_x = smem;                 // (G, C, N)
   float* s_psi = s_x + G * C * N;    // (G, N) state at record points
   float* s_nu = s_psi + G * N;       // (G, N)
+  int* s_viol = reinterpret_cast<int*>(s_nu + G * N);  // (G,) with kGuard
   const float* A = p.at;
   if (p.a_in_smem) {
-    float* s_a = s_nu + G * N;       // (C, N, N)
+    float* s_a = reinterpret_cast<float*>(s_viol + (kGuard ? G : 0));
     for (int k = threadIdx.x; k < C * N * N; k += blockDim.x) s_a[k] = p.at[k];
     A = s_a;
   }
@@ -119,10 +135,27 @@ __global__ void bittide_fused_kernel(const Params p) {
     if (c < C) xs[c * N + i] = __fsub_rn(psi, __fmul_rn(nu, lat[c]));
   __syncthreads();
 
+  float glo = 0.f, ghi = 0.f;
+  if (kGuard) {
+    glo = p.guard_lo[bi];
+    ghi = p.guard_hi[bi];
+  }
+  // Guard: records after guard_stop are not run, and a draw that tripped
+  // runs nothing more (its threads keep meeting the block barriers).
+  const int t_end = kGuard ? min(p.num_records, p.guard_stop + 1)
+                           : p.num_records;
+  bool frozen = false;
+  int trip = p.num_records;
+
   float w_bmax = 0.f, w_lo = 0.f, w_hi = 0.f;
   int w_idx = 0;
-  for (int t = 0; t < p.num_records; ++t) {
+  for (int t = 0; t < t_end; ++t) {
     for (int s = 0; s < p.record_every; ++s) {
+      if (frozen) {
+        __syncthreads();
+        __syncthreads();
+        continue;
+      }
       float acc = 0.f;
 #pragma unroll
       for (int c = 0; c < kMaxClasses; ++c) {
@@ -150,8 +183,8 @@ __global__ void bittide_fused_kernel(const Params p) {
     }
 
     const size_t rec = ((size_t)t * p.B + bi) * N + i;
-    if (live) p.freq[rec] = nu;
-    if (kBeta || kWm) {
+    if (live && !frozen) p.freq[rec] = nu;
+    if (kBeta || kWm || kGuard) {
       // Per-node net occupancy of the post-update state, psi centred by
       // its row mean (beta is invariant under a uniform shift; centring
       // keeps the partial sums at the size of the psi spread).
@@ -159,7 +192,13 @@ __global__ void bittide_fused_kernel(const Params p) {
       float* ns = s_nu + g * N;
       ps[i] = psi;
       ns[i] = nu;
+      if (kGuard && i == 0) s_viol[g] = 0;
       __syncthreads();
+      if (frozen) {
+        if (kGuard) __syncthreads();
+        if (kGuard && __syncthreads_and(frozen || !live)) break;
+        continue;
+      }
       float sum = 0.f;
       for (int j = 0; j < N; ++j) sum = __fadd_rn(sum, ps[j]);
       const float mean = __fdiv_rn(sum, (float)N);
@@ -195,8 +234,20 @@ __global__ void bittide_fused_kernel(const Params p) {
           w_hi = fmaxf(w_hi, nu);
         }
       }
-      // ps / ns are next written at the following record, after at least
-      // one period's barriers, so no barrier is needed here.
+      if (kGuard) {
+        // Strict inequalities: a node of degree 0 (beta == 0) never trips.
+        if (bnode > __fmul_rn(ghi, deg) || bnode < __fmul_rn(glo, deg))
+          s_viol[g] = 1;
+        __syncthreads();
+        if (s_viol[g]) {
+          trip = t;
+          frozen = true;
+        }
+        // Every draw of the CTA frozen (idle threads count as frozen).
+        if (__syncthreads_and(frozen || !live)) break;
+      }
+      // ps / ns / s_viol are next written at the following record, after
+      // at least one period's barriers, so no barrier is needed here.
     }
   }
 
@@ -209,6 +260,7 @@ __global__ void bittide_fused_kernel(const Params p) {
       p.wm_lo[row] = w_lo;
       p.wm_hi[row] = w_hi;
     }
+    if (kGuard && i == 0) p.trip[bi] = trip;
   }
 }
 
@@ -233,23 +285,34 @@ extern "C" int bittide_fused_launch(
     const float* deg, const float* lamsum, const float* lat, float dt_frames,
     int B, int N, int C, int num_records, int record_every, int draws_per_cta,
     int a_in_smem, float* psi_out, float* nu_out, float* freq, float* beta,
-    float* wm_bmax, int* wm_idx, float* wm_lo, float* wm_hi, void* stream) {
+    float* wm_bmax, int* wm_idx, float* wm_lo, float* wm_hi,
+    const float* guard_lo, const float* guard_hi, int guard_stop, int* trip,
+    void* stream) {
   if (C < 1 || C > kMaxClasses || N < 1 || draws_per_cta < 1 ||
       draws_per_cta * N > 1024)
     return (int)cudaErrorInvalidValue;
   Params p{at, psi0, nu0, nu_u, kp, beta_off, mask, deg, lamsum, lat,
-           dt_frames, B, N, C, mask_rows, num_records, record_every,
-           draws_per_cta, a_in_smem, psi_out, nu_out, freq, beta,
-           wm_bmax, wm_idx, wm_lo, wm_hi};
+           guard_lo, guard_hi, dt_frames, B, N, C, mask_rows, num_records,
+           record_every, draws_per_cta, a_in_smem, guard_stop, psi_out,
+           nu_out, freq, beta, wm_bmax, wm_idx, wm_lo, wm_hi, trip};
   const int G = draws_per_cta;
+  const bool want_beta = beta != nullptr, want_wm = wm_bmax != nullptr,
+             want_guard = trip != nullptr;
   size_t smem = sizeof(float) * ((size_t)G * C * N + 2 * (size_t)G * N);
+  if (want_guard) smem += sizeof(int) * (size_t)G;
   if (a_in_smem) smem += sizeof(float) * (size_t)C * N * N;
-  void (*kern)(const Params);
-  const bool want_beta = beta != nullptr, want_wm = wm_bmax != nullptr;
-  if (want_beta && want_wm) kern = bittide_fused_kernel<true, true>;
-  else if (want_beta) kern = bittide_fused_kernel<true, false>;
-  else if (want_wm) kern = bittide_fused_kernel<false, true>;
-  else kern = bittide_fused_kernel<false, false>;
+  // The eight template instances, indexed by (beta, watermarks, guard).
+  void (*const kernels[8])(const Params) = {
+      bittide_fused_kernel<false, false, false>,
+      bittide_fused_kernel<false, false, true>,
+      bittide_fused_kernel<false, true, false>,
+      bittide_fused_kernel<false, true, true>,
+      bittide_fused_kernel<true, false, false>,
+      bittide_fused_kernel<true, false, true>,
+      bittide_fused_kernel<true, true, false>,
+      bittide_fused_kernel<true, true, true>};
+  void (*kern)(const Params) =
+      kernels[4 * want_beta + 2 * want_wm + want_guard];
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -1,15 +1,17 @@
-"""Runners of the dense fused lane + topology densification.
+"""Runners of the dense lanes + topology densification.
 
-Port of the fused part of ``repro.kernels.ops``.  ``densify`` converts an
-edge-list topology into the latency-class dense form the kernel consumes;
-the entry points are:
+Port of the dense part of ``repro.kernels.ops``.  ``densify`` converts an
+edge-list topology into the latency-class dense form; the entry points
+are:
 
 ``simulate_ensemble_dense``
-    B independent oscillator draws advance together through ONE launch of
-    the fused kernel (:func:`repro_torch.kernels.bittide_step.bittide_fused`).
-    ``kp`` / ``beta_off`` accept per-draw arrays; like the class
-    latencies, ``lamsum`` and the controller mask they are kernel
-    arguments, so a gain sweep builds nothing new.
+    B independent oscillator draws advance together through one call of
+    a dense kernel: the fused kernel
+    (:func:`repro_torch.kernels.bittide_step.bittide_fused`) in its
+    regime, the tiled kernel (``bittide_tiled``) beyond it.  ``kp`` /
+    ``beta_off`` accept per-draw arrays; like the class latencies,
+    ``lamsum`` and the controller mask they are kernel arguments, so a
+    gain sweep builds nothing new.
 
 ``simulate_fused``
     One draw on the same lane.
@@ -22,21 +24,24 @@ All return a :class:`DenseResult` — the ``(freq_ppm, psi)`` pair with
 for ``init=`` chaining), ``.beta`` (per-node net occupancy records in
 frames) and ``.watermarks`` — as host numpy arrays.
 
-Lanes: ``EngineOptions(engine="fused")`` or ``"auto"`` inside the H100
-fused regime (``select_engine``), and ``use_ref=True`` for the plain dense
-oracle.  The tiled, sparse and per-step lanes raise ``NotImplementedError``
-naming their ROADMAP items; no lane falls back to another.
+Lanes: ``EngineOptions(engine="fused")``, ``"tiled"``, or ``"auto"``
+(the H100 regime table, ``select_engine``: fused up to 256 nodes, tiled
+above), and ``use_ref=True`` for the plain dense oracle.  The sparse and
+per-step lanes raise ``NotImplementedError`` naming their ROADMAP items;
+no lane falls back to another.
 
-Padding: the H100 kernel maps (draw, node) pairs to threads, so it needs
-neither the reference's 128-node tiles nor its 8-row batch quantum; the
-port pads nothing by default (``NODE_TILE = BATCH_QUANTUM = 1``).  The
-padding helpers keep their quantum, and padded nodes (degree 0) and draws
-stay inert.
+The kernels map (draw, node) pairs to threads and mask their ragged
+edges themselves, so nothing is padded: the reference's 128-node tiles
+and 8-row batch quantum have no counterpart here.  The kernels read the
+stack source-major (``a_t[c, j, i] = A[c, i, j]``); ``densify``, the
+runners and the oracle all use that one layout (``_scatter``), and the
+kernel lanes never build the dense λeff tensor (they fold λeff into
+``lamsum``).
 """
 from __future__ import annotations
 
 import warnings
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,32 +53,28 @@ from repro_torch.telemetry.api import Telemetry
 from repro_torch.telemetry.watermarks import Watermarks
 
 from .api import EngineOptions, EngineOutputs
-from .bittide_step import bittide_fused, select_engine
+from .bittide_step import TILE_J, bittide_fused, bittide_tiled, select_engine
 from .ref import bittide_dense_multistep_ref
 
 __all__ = ["densify", "latency_classes", "simulate_dense", "simulate_fused",
-           "simulate_ensemble_dense", "DenseResult", "NODE_TILE",
-           "BATCH_QUANTUM"]
+           "simulate_ensemble_dense", "DenseResult"]
 
 # Beyond this many exact latency classes, densify falls back to quantized
 # merging (the dense stack is (C, N, N) — C must stay small).
 MAX_EXACT_CLASSES = 8
 
-NODE_TILE = 1       # node padding quantum of the port's dense stacks
-BATCH_QUANTUM = 1   # draw padding quantum
-
 # Lanes of the reference this port does not have yet, by ROADMAP item.
-_UNPORTED = {"tiled": "ROADMAP queue item 3 (tiled lane)",
-             "sparse": "ROADMAP queue item 5 (sparse lane)",
+_UNPORTED = {"sparse": "ROADMAP queue item 5 (sparse lane)",
              "per-step": "ROADMAP queue item 9 (per-step lane)"}
 
 
 class DenseResult(tuple):
     """``(freq_ppm, psi)`` pair with engine-dispatch metadata attached.
 
-    ``.engine`` names the lane (``"fused"`` | ``"ref"``), ``.tile_j`` the
-    adjacency panel width in nodes (== padded N: the fused lane keeps the
-    whole stack).  ``.nu`` carries the exact final relative frequencies
+    ``.engine`` names the lane (``"fused"`` | ``"tiled"`` | ``"ref"``),
+    ``.tile_j`` the adjacency panel width in nodes (N on the fused lane,
+    which keeps the whole stack; the tiled kernel's panel width, at most
+    ``TILE_J``, on the tiled lane).  ``.nu`` carries the exact final relative frequencies
     for ``init=`` chaining (``freq_ppm[..., -1, :]`` is ν·1e6 rounded
     through float32 and does not round-trip).  ``.beta`` is the per-node
     net occupancy record in frames, (B, R, N) / (R, N), or None;
@@ -148,18 +149,38 @@ def latency_classes(lat_frames: np.ndarray,
             inv.astype(np.int64))
 
 
+def _scatter(topo: Topology, inv: np.ndarray, c: int,
+             values) -> np.ndarray:
+    """(C, N, N) float32 per-class scatter of per-edge ``values`` in the
+    kernels' source-major layout, entry [c, src, dst], with ``np.add.at``
+    (duplicate edges accumulate, so multigraphs work)."""
+    n = topo.num_nodes
+    out = np.zeros((c, n, n), np.float32)
+    np.add.at(out, (inv, np.asarray(topo.src, np.int64),
+                    np.asarray(topo.dst, np.int64)), values)
+    return out
+
+
+def _edge_weights(topo: Topology, edge_w) -> np.ndarray:
+    return (np.ones(topo.num_edges, np.float64) if edge_w is None
+            else np.asarray(edge_w, np.float64))
+
+
 def densify(topo: Topology, links: LinkParams, omega_nom: float = OMEGA_NOM,
-            quantum_frames: Optional[float] = None, tile: int = NODE_TILE,
+            quantum_frames: Optional[float] = None,
             lat_classes: Optional[np.ndarray] = None,
             edge_w: Optional[np.ndarray] = None, *, device=None):
-    """Edge list -> (A, lam_eff, lat_classes, n_padded).
+    """Edge list -> (a_t, lam_t, lat_classes, N).
 
-    A and λeff are (C, N_pad, N_pad) float32 tensors on ``device`` (None
+    The stack and λeff are (C, N, N) float32 tensors on ``device`` (None
     means the CUDA card), built on the host with ``np.add.at`` (duplicate
-    edges accumulate, so multigraphs work); ``edge_w`` scales each edge's
-    adjacency and λeff contribution (0 removes a dropped link).  N is
-    padded up to a multiple of ``tile``.  ``lat_classes`` pins the class
-    axis to a given latency vector.
+    edges accumulate, so multigraphs work), in the kernels' source-major
+    layout: ``a_t[c, j, i]`` is the weight of the edge j → i in class c,
+    the transpose of the reference's ``A[c, i, j]``.  ``edge_w`` scales
+    each edge's adjacency and λeff contribution (0 removes a dropped
+    link).  ``lat_classes`` pins the class axis to a given latency vector.
+    Nothing is padded; the fourth value is N, where the reference returns
+    its padded N.
     """
     dev = resolve_device(device)
     lat_frames = np.asarray(links.latency_s, np.float64) * omega_nom
@@ -169,34 +190,36 @@ def densify(topo: Topology, links: LinkParams, omega_nom: float = OMEGA_NOM,
             "handled by simulate_ensemble_dense")
     classes, inv = latency_classes(lat_frames, quantum_frames, lat_classes)
     c = len(classes)
-    n = topo.num_nodes
-    n_pad = ((n + tile - 1) // tile) * tile
-    a = np.zeros((c, n_pad, n_pad), np.float32)
-    lam = np.zeros((c, n_pad, n_pad), np.float32)
-    dst = np.asarray(topo.dst, np.int64)
-    src = np.asarray(topo.src, np.int64)
-    w = (np.ones(topo.num_edges, np.float64) if edge_w is None
-         else np.asarray(edge_w, np.float64))
-    np.add.at(a, (inv, dst, src), w)
-    np.add.at(lam, (inv, dst, src), np.asarray(links.beta0, np.float64) * w)
+    w = _edge_weights(topo, edge_w)
+    a_t = _scatter(topo, inv, c, w)
+    lam_t = _scatter(topo, inv, c, np.asarray(links.beta0, np.float64) * w)
     put = lambda x: torch.as_tensor(x, device=dev)
-    return put(a), put(lam), put(classes), n_pad
+    return put(a_t), put(lam_t), put(classes), topo.num_nodes
 
 
-def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a, lam_eff,
+def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a_t, deg,
                   lamsum, lat, dt_frames: float, num_records: int,
-                  record_every: int, use_ref: bool, record_beta: bool,
-                  record_watermarks: bool) -> EngineOutputs:
-    """One run of the fused lane (or of the dense oracle with ``use_ref``).
+                  record_every: int, engine: str, record_beta: bool,
+                  record_watermarks: bool, record_guard: bool = False,
+                  guard_lo=None, guard_hi=None, guard_stop=None,
+                  lam_t=None) -> EngineOutputs:
+    """One run of a dense lane: ``engine`` is the chosen lane ("fused",
+    "tiled", or "ref" for the dense oracle).
 
-    psi, nu, nu_u: (B_pad, N_pad) state; kp, beta_off: (B_pad,) gains;
-    ctrl_mask: (1 | B_pad, N_pad); a, lam_eff: (C, N_pad, N_pad); lamsum:
-    (B_pad, N_pad); lat: (B_pad, C).  Watermarks are (beta_abs_max,
-    peak_record, nu_min, nu_max).
+    psi, nu, nu_u: (B, N) state; kp, beta_off: (B,) gains; ctrl_mask:
+    (1 | B, N); a_t: (C, N, N) stack in the kernels' layout with its
+    degree fold deg (N,); lamsum: (B, N); lat: (B, C).  The oracle reads
+    the dense λeff ``lam_t`` (same layout) instead of ``lamsum``.  With
+    ``record_guard``, guard_lo / guard_hi (B,) and the int guard_stop feed
+    the in-kernel guard (``EngineOutputs.guard_state``).  Watermarks are
+    (beta_abs_max, peak_record, nu_min, nu_max).
     """
-    if use_ref:
+    if engine == "ref":
+        if record_guard:
+            raise ValueError("record_guard is not supported on the "
+                             "use_ref oracle lane")
         psi_f, nu_f, rec, brec = bittide_dense_multistep_ref(
-            psi, nu, nu_u, a, lam_eff, lat, kp, beta_off, dt_frames,
+            psi, nu, nu_u, a_t, lam_t, lat, kp, beta_off, dt_frames,
             num_records, record_every, ctrl_mask,
             record_beta=record_beta or record_watermarks)
         wm = None
@@ -211,42 +234,17 @@ def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a, lam_eff,
                 brec = None
         return EngineOutputs(psi=psi_f, nu=nu_f, freq=rec, beta=brec,
                              watermarks=wm)
-    # Step-invariant per-node degree fold, hoisted out of the period loop.
-    deg = a.sum(dim=(0, 2))
-    return bittide_fused(psi, nu, nu_u, a, deg, lamsum, lat, kp, beta_off,
-                         dt_frames, num_records=num_records,
-                         record_every=record_every, ctrl_mask=ctrl_mask,
-                         record_beta=record_beta,
-                         record_watermarks=record_watermarks)
+    kernel = {"fused": bittide_fused, "tiled": bittide_tiled}[engine]
+    return kernel(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
+                  dt_frames, num_records=num_records,
+                  record_every=record_every, ctrl_mask=ctrl_mask,
+                  record_beta=record_beta,
+                  record_watermarks=record_watermarks,
+                  record_guard=record_guard, guard_lo=guard_lo,
+                  guard_hi=guard_hi, guard_stop=guard_stop)
 
 
-def _pad_batch(ppm_u: np.ndarray, n: int, n_pad: int,
-               quantum: int = BATCH_QUANTUM) -> Tuple[np.ndarray, int]:
-    """(B, n) ppm draws -> (B_pad, n_pad) ν_u with inert zero padding."""
-    b = ppm_u.shape[0]
-    b_pad = ((b + quantum - 1) // quantum) * quantum
-    nu_u = np.zeros((b_pad, n_pad), np.float32)
-    nu_u[:b, :n] = ppm_u * 1e-6
-    return nu_u, b_pad
-
-
-def _pad_gain(gain: np.ndarray, b_pad: int) -> np.ndarray:
-    """(B,) per-draw gains -> (B_pad,) (padding rows are independent)."""
-    out = np.zeros((b_pad,), np.float32)
-    out[:gain.shape[0]] = gain
-    return out
-
-
-def _pad_state(state: np.ndarray, b_pad: int, n_pad: int) -> np.ndarray:
-    """(B, N) chained state -> (B_pad, N_pad) with inert zero padding."""
-    b, n = np.asarray(state).shape
-    out = np.zeros((b_pad, n_pad), np.float32)
-    out[:b, :n] = np.asarray(state, np.float32)
-    return out
-
-
-def _resolve_init(init, b: int, n: int, b_pad: int, n_pad: int,
-                  nu_u: np.ndarray):
+def _resolve_init(init, b: int, n: int, nu_u: np.ndarray):
     """Seed (psi0, nu0) from ``init`` (a prior result or a (ψ, ν) pair)."""
     if init is None:
         return np.zeros_like(nu_u), nu_u.copy()
@@ -261,26 +259,21 @@ def _resolve_init(init, b: int, n: int, b_pad: int, n_pad: int,
             raise ValueError(
                 f"init {name} must be (B, N) = ({b}, {n}), got "
                 f"{arr.shape}")
-    return _pad_state(init_psi, b_pad, n_pad), _pad_state(init_nu, b_pad,
-                                                          n_pad)
+    return init_psi.astype(np.float32), init_nu.astype(np.float32)
 
 
-def _resolve_mask(ctrl_mask, b: int, n: int, b_pad: int, n_pad: int):
-    """Pad the controller-enable mask — (N,) shared or (B, N) per-draw —
-    to kernel layout (1 | B_pad, N_pad); padding stays enabled (inert)."""
-    mask_np = (None if ctrl_mask is None
-               else np.asarray(ctrl_mask, np.float32))
-    if mask_np is not None and mask_np.ndim == 2:
-        if mask_np.shape != (b, n):
+def _resolve_mask(ctrl_mask, b: int, n: int) -> np.ndarray:
+    """The controller-enable mask — (N,) shared or (B, N) per-draw — as
+    kernel rows (1 | B, N)."""
+    if ctrl_mask is None:
+        return np.ones((1, n), np.float32)
+    mask = np.asarray(ctrl_mask, np.float32)
+    if mask.ndim == 2:
+        if mask.shape != (b, n):
             raise ValueError(f"per-draw ctrl_mask must be ({b}, {n}), got "
-                             f"{mask_np.shape}")
-        mask_pad = np.ones((b_pad, n_pad), np.float32)
-        mask_pad[:b, :n] = mask_np
-    else:
-        mask_pad = np.ones((1, n_pad), np.float32)
-        if mask_np is not None:
-            mask_pad[0, :n] = mask_np
-    return mask_pad
+                             f"{mask.shape}")
+        return mask
+    return mask.reshape(1, n)
 
 
 def _link_rows(links: LinkParams, b: int, num_edges: int):
@@ -330,13 +323,12 @@ def _per_draw_class_values(lat_frames: np.ndarray, classes: np.ndarray,
     return latv.astype(np.float32)
 
 
-def _lamsum_host(topo: Topology, beta0: np.ndarray, edge_w, b_rows: int,
-                 n_pad: int) -> np.ndarray:
-    """Per-node λeff fold Σ_{e→i} w_e·β0_e as (b_rows, n_pad) rows."""
-    w = (np.ones(topo.num_edges, np.float64) if edge_w is None
-         else np.asarray(edge_w, np.float64))
-    contrib = np.broadcast_to(beta0 * w, (b_rows, topo.num_edges))
-    out = np.zeros((b_rows, n_pad), np.float64)
+def _lamsum_host(topo: Topology, beta0: np.ndarray, edge_w,
+                 b_rows: int) -> np.ndarray:
+    """Per-node λeff fold Σ_{e→i} w_e·β0_e as (b_rows, N) rows."""
+    contrib = np.broadcast_to(beta0 * _edge_weights(topo, edge_w),
+                              (b_rows, topo.num_edges))
+    out = np.zeros((b_rows, topo.num_nodes), np.float64)
     rows = np.broadcast_to(np.arange(b_rows)[:, None],
                            (b_rows, topo.num_edges))
     dst = np.broadcast_to(np.asarray(topo.dst, np.int64)[None, :],
@@ -345,10 +337,10 @@ def _lamsum_host(topo: Topology, beta0: np.ndarray, edge_w, b_rows: int,
     return out.astype(np.float32)
 
 
-def _host_watermarks(wm_dev, num_records: int, b: int, n: int) -> Watermarks:
-    """Device watermark tuple -> host :class:`Watermarks`, padding cut
-    away and the ν extremes converted to ppm (``freq_ppm``'s units)."""
-    bmax, idx, lo, hi = (x[:b, :n].cpu().numpy() for x in wm_dev)
+def _host_watermarks(wm_dev, num_records: int) -> Watermarks:
+    """Device watermark tuple -> host :class:`Watermarks`, the ν extremes
+    converted to ppm (``freq_ppm``'s units)."""
+    bmax, idx, lo, hi = (x.cpu().numpy() for x in wm_dev)
     return Watermarks(beta_abs_max=bmax, peak_record=idx,
                       nu_min_ppm=lo * 1e6, nu_max_ppm=hi * 1e6,
                       num_records=num_records)
@@ -365,7 +357,7 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
                             options: Optional[EngineOptions] = None,
                             telemetry: Optional[Telemetry] = None, *,
                             device=None) -> DenseResult:
-    """Batched fused synchronization: B draws in one kernel launch.
+    """Batched dense synchronization: B draws in one call of a dense kernel.
 
     Args:
       links: per-edge physical parameters; ``latency_s`` / ``beta0`` may
@@ -376,7 +368,7 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
         ``record_every``).
       kp, beta_off: scalars or length-B arrays (one per draw).
       record_every: in-kernel telemetry decimation.
-      use_ref: run the plain dense oracle instead of the fused kernel.
+      use_ref: run the plain dense oracle instead of a kernel.
       init: optional ``(psi, nu)`` pair of (B, N) arrays or a prior
         DenseResult (segment chaining); default cold start (ψ = 0, ν = ν_u).
       ctrl_mask: optional (N,) shared or (B, N) per-draw controller-enable
@@ -385,7 +377,8 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
         axis.
       edge_w: optional (E,) edge weights (0 = dropped link).  Per-draw
         (B, E) weights need the sparse lane, which is not ported.
-      options: :class:`EngineOptions`; ``engine`` is "auto" or "fused".
+      options: :class:`EngineOptions`; ``engine`` is "auto" (the H100
+        regime table), "fused" or "tiled".
       telemetry: :class:`Telemetry` — ``beta`` / ``watermarks``.
       device: where to run; None means the CUDA card (raises without one).
 
@@ -402,6 +395,12 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
     if not isinstance(tel, Telemetry):
         raise TypeError("telemetry= must be a repro_torch.telemetry."
                         f"Telemetry, got {type(tel).__name__}")
+    if tel.trace or tel.guard:
+        raise ValueError(
+            "simulate_ensemble_dense: Telemetry.trace / Telemetry.guard "
+            "need the scenario runner — use repro_torch.scenarios."
+            "run_scenario, which owns the flight recorder and the "
+            "reframing splice")
     if opts.interpret:
         raise ValueError("repro_torch has no kernel interpreter; pass "
                          "device='cpu' to run the plain PyTorch versions")
@@ -412,7 +411,7 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
     if engine in _UNPORTED:
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet: {_UNPORTED[engine]}")
-    if engine not in ("auto", "fused"):
+    if engine not in ("auto", "fused", "tiled"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
     ppm_u = np.atleast_2d(np.asarray(ppm_u, np.float32))
@@ -436,63 +435,50 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
     if beta0_batched and use_ref:
         raise ValueError("use_ref does not support per-draw beta0 (the "
                          "oracle's lam_eff tensor is shared across draws)")
+    lat_frames_be = lat_be * omega_nom
+    # Class structure from draw 0 (snapped to lat_classes when given), class
+    # VALUES from each draw's rows.
+    classes, inv = latency_classes(lat_frames_be[0], lat_classes=lat_classes)
+    c = len(classes)
     if batched:
-        # Class structure from draw 0, class VALUES from each draw's rows.
-        lat_frames_be = lat_be * omega_nom
-        classes_np, inv = latency_classes(lat_frames_be[0],
-                                          lat_classes=lat_classes)
-        classes_np = np.asarray(classes_np, np.float64)
-        latv = _per_draw_class_values(lat_frames_be, classes_np, inv)
-        links0 = LinkParams(latency_s=classes_np[inv] / omega_nom,
-                            beta0=beta0_be[0])
+        latv = _per_draw_class_values(lat_frames_be,
+                                      np.asarray(classes, np.float64), inv)
     else:
-        links0 = LinkParams(latency_s=lat_be[0], beta0=beta0_be[0])
-    a, lam_eff, classes, n_pad = densify(
-        topo, links0, omega_nom,
-        lat_classes=classes_np if batched else lat_classes, edge_w=edge_w,
-        device=dev)
-    c = a.shape[0]
-    classes_np = classes.cpu().numpy()
-    if not batched:
-        latv = np.broadcast_to(classes_np[None, :], (b, c))
-    lamsum_rows = _lamsum_host(topo, beta0_be if beta0_batched
-                               else beta0_be[0][None], edge_w,
-                               b if beta0_batched else 1, n_pad)
-
-    nu_u, b_pad = _pad_batch(ppm_u, n, n_pad)
-    psi0, nu0 = _resolve_init(init, b, n, b_pad, n_pad, nu_u)
-    mask_pad = _resolve_mask(ctrl_mask, b, n, b_pad, n_pad)
+        latv = np.broadcast_to(classes[None, :], (b, c))
 
     if use_ref:
         chosen = "ref"
     else:
-        chosen = select_engine(b_pad, n_pad, c)[0]
-        if engine == "auto" and chosen != "fused":
+        chosen = select_engine(b, n, c)[0] if engine == "auto" else engine
+        if chosen not in ("fused", "tiled"):
             raise NotImplementedError(
-                f"N={n_pad}, C={c} is outside the H100 fused regime and the "
-                f"{chosen} lane is not ported yet: {_UNPORTED[chosen]}")
-        chosen = "fused"
+                f"N={n}, C={c} is outside the fused and tiled regimes and "
+                f"the {chosen} lane is not ported yet: {_UNPORTED[chosen]}")
+    w = _edge_weights(topo, edge_w)
+    put = lambda x: torch.as_tensor(np.array(x, np.float32, order="C"),
+                                    device=dev)
+    # _scatter's arrays are fresh float32: copied to the device as they are.
+    a_t = torch.as_tensor(_scatter(topo, inv, c, w), device=dev)
+    lam_t = (torch.as_tensor(_scatter(topo, inv, c, beta0_be[0] * w),
+                             device=dev) if use_ref else None)
+    lamsum = np.broadcast_to(
+        _lamsum_host(topo, beta0_be if beta0_batched else beta0_be[0][None],
+                     edge_w, b if beta0_batched else 1), (b, n))
+    nu_u = ppm_u * np.float32(1e-6)
+    psi0, nu0 = _resolve_init(init, b, n, nu_u)
 
-    lat_pad = np.empty((b_pad, c), np.float32)
-    lat_pad[:b] = latv
-    lat_pad[b:] = classes_np[None, :]
-    lamsum_pad = np.zeros((b_pad, n_pad), np.float32)
-    lamsum_pad[:b] = np.broadcast_to(lamsum_rows, (b, n_pad))
-
-    put = lambda x: torch.as_tensor(np.array(x), device=dev)
     out = _fused_engine(
-        put(psi0), put(nu0), put(nu_u), put(_pad_gain(kp, b_pad)),
-        put(_pad_gain(beta_off, b_pad)), put(mask_pad), a, lam_eff,
-        put(lamsum_pad), put(lat_pad), float(omega_nom * dt),
-        int(num_records), int(record_every), bool(use_ref),
-        tel.beta, tel.watermarks)
+        put(psi0), put(nu0), put(nu_u), put(kp), put(beta_off),
+        put(_resolve_mask(ctrl_mask, b, n)), a_t, a_t.sum(dim=(0, 1)),
+        put(lamsum), put(latv), float(omega_nom * dt), int(num_records),
+        int(record_every), chosen, tel.beta, tel.watermarks, lam_t=lam_t)
 
-    host = lambda x: x[:, :b, :n].transpose(0, 1).contiguous().cpu().numpy()
+    host = lambda x: x.transpose(0, 1).contiguous().cpu().numpy()
     return DenseResult(
-        host(out.freq * 1e6), out.psi[:b, :n].cpu().numpy(), chosen, n_pad,
-        nu=out.nu[:b, :n].cpu().numpy(),
-        beta=host(out.beta) if tel.beta else None,
-        watermarks=(_host_watermarks(out.watermarks, num_records, b, n)
+        host(out.freq * 1e6), out.psi.cpu().numpy(), chosen,
+        min(TILE_J, n) if chosen == "tiled" else n,
+        nu=out.nu.cpu().numpy(), beta=host(out.beta) if tel.beta else None,
+        watermarks=(_host_watermarks(out.watermarks, num_records)
                     if tel.watermarks else None))
 
 

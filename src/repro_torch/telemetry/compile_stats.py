@@ -6,11 +6,12 @@ it does build and launch instead:
 
 * :func:`compile_stats` — ``"builds"``: kernel libraries compiled by
   ``nvcc`` in this process; ``"loaded"``: libraries loaded;
-  ``"fused"``: template instances of the fused kernel the wrapper has
-  selected, keyed by (record_beta, record_watermarks) — on a CPU tensor
-  the wrapper selects the same key before it runs the plain version.
-* :func:`launch_counts` — ``"fused"``: launches of the fused kernel;
-  ``"segment-sum"``: runs of the segment-sum period loop.
+  ``"fused"`` / ``"tiled"``: kernel variants the wrappers have selected,
+  keyed by (record_beta, record_watermarks, record_guard) — on a CPU
+  tensor a wrapper selects the same key before it runs the plain version.
+* :func:`launch_counts` — ``"fused"`` / ``"tiled"``: calls of each kernel
+  wrapper that launched on the card; ``"segment-sum"``: runs of the
+  segment-sum period loop.
 
 :class:`no_new_compiles` keeps the reference's meaning: a gain, latency,
 mask or ``lamsum`` sweep builds and selects nothing new.
@@ -26,16 +27,18 @@ __all__ = ["compile_stats", "launch_counts", "no_new_compiles"]
 def compile_stats() -> dict:
     """Builds, loaded libraries and selected kernel instances so far."""
     from repro_torch.kernels import bittide_step, build
+    used = bittide_step.VARIANTS_USED
     return {"builds": build.BUILD_COUNT["nvcc"],
             "loaded": build.BUILD_COUNT["loaded"],
-            "fused": len(bittide_step.VARIANTS_USED)}
+            "fused": sum(1 for v in used if v[0] == "fused"),
+            "tiled": sum(1 for v in used if v[0] == "tiled")}
 
 
 def launch_counts() -> dict:
-    """Kernel launches (fused) and period-loop runs (segment-sum)."""
+    """Kernel launches (fused, tiled) and period-loop runs (segment-sum)."""
     from repro_torch.core.frame_model import RUN_COUNT
-    from repro_torch.kernels.bittide_step import bittide_fused
-    return {"fused": bittide_fused.launches,
+    from repro_torch.kernels.bittide_step import bittide_fused, bittide_tiled
+    return {"fused": bittide_fused.launches, "tiled": bittide_tiled.launches,
             "segment-sum": RUN_COUNT["segment-sum"]}
 
 

@@ -1,4 +1,4 @@
-"""Card tests: the fused kernel against its plain version on an NVIDIA card.
+"""Card tests: the kernels against their plain version on an NVIDIA card.
 
 Marked ``gpu``; run on the machine with the card with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py``.
@@ -13,7 +13,14 @@ read from L2) and with one (A in shared memory) — with per-draw kp / lat
 / lamsum / holdover mask, 400 periods recorded every 20.  The kernel
 performs the plain version's float32 operations in the same order, so
 the results are held to ``FREQ_ATOL_PPM`` / ``BETA_ATOL_FRAMES`` and
-watermark indices exactly.
+watermark indices exactly.  The tiled kernel runs ``TILED_PARITY_CASES``
+(torus3d(8) at B=9, torus3d(7) at B=5, one class and a one-way second
+class) in every variant and with guard bands that trip at different
+records and that never trip; the fused guard runs ``FUSED_GUARD_CASES``
+(FC8, and torus3d(8) with two classes: 512 threads per CTA, A from L2),
+whose draws trip at different records so that the wrapper replays the
+chunk.  Guard runs are compared over the records up to the earliest trip,
+with trip records exactly equal.
 """
 import importlib.util
 from pathlib import Path
@@ -27,7 +34,9 @@ import repro_torch.core as tc  # noqa: E402
 import repro_torch.kernels as tk  # noqa: E402
 from repro_torch.kernels.bittide_step import (bittide_fused,  # noqa: E402
                                               bittide_fused_torch,
-                                              launch_plan)
+                                              bittide_tiled, launch_plan)
+from repro_torch.scenarios import (LatencyStep, Scenario,  # noqa: E402
+                                   edges_between, run_scenario)
 from repro_torch.telemetry import Telemetry  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -112,3 +121,122 @@ def test_main_path_runs_on_the_card(cuda):
                                      telemetry=Telemetry(beta=True))
     assert bittide_fused.launches == before + 1
     assert res.engine == "fused" and np.isfinite(res[0]).all()
+
+
+def _tiled_variants(args, kw, b):
+    """The four variants, then the guard with bands that trip at records
+    1..3 and with bands that never trip."""
+    out = [dict(record_beta=beta, record_watermarks=wm)
+           for beta, wm in ((False, False), (True, False), (False, True),
+                            (True, True))]
+    for trips in (True, False):
+        band = chip_smoke.trip_bands(
+            args, kw, [1 + i % 3 if trips else None for i in range(b)])
+        out.append(dict(record_beta=True, record_watermarks=True,
+                        record_guard=True, guard_lo=-band, guard_hi=band,
+                        guard_stop=chip_smoke.TILED_RECORDS - 1))
+    return out
+
+
+@pytest.mark.parametrize("variant", range(6),
+                         ids=["nu", "beta", "wm", "beta+wm", "guard_trips",
+                              "guard_quiet"])
+@pytest.mark.parametrize("case", chip_smoke.TILED_PARITY_CASES,
+                         ids=["torus3d_8", "torus3d_8_two_classes",
+                              "torus3d_7", "torus3d_7_two_classes"])
+def test_tiled_kernel_matches_plain_version(cuda, case, variant):
+    _, args, mask = chip_smoke.parity_inputs(case, cuda, one_way=True)
+    b = args[0].shape[0]
+    kw = dict(num_records=chip_smoke.TILED_RECORDS,
+              record_every=chip_smoke.TILED_EVERY, ctrl_mask=mask)
+    v = _tiled_variants(args, kw, b)[variant]
+    before = bittide_tiled.launches
+    got = bittide_tiled(*args, **kw, **v)
+    torch.cuda.synchronize()
+    assert bittide_tiled.launches == before + 1
+    want = bittide_fused_torch(*args, **kw, **v)
+    records = chip_smoke.TILED_RECORDS
+    if v.get("record_guard"):
+        assert torch.equal(got.guard_state, want.guard_state)
+        tstar = int(want.guard_state.min())
+        assert (tstar < records - 1) == (variant == 4)
+        records = min(tstar, records - 1) + 1
+    chip_smoke.kernel_vs_plain(got, want, records=records)
+
+
+@pytest.mark.parametrize("guard_case", chip_smoke.FUSED_GUARD_CASES,
+                         ids=["fc8", "torus3d_8_two_classes"])
+def test_fused_guard_replays_at_the_earliest_trip(cuda, guard_case):
+    """Draws trip at different records: the wrapper launches the chunk a
+    second time, capped at the earliest trip, and then equals the plain
+    version's batch-wide freeze (trip records exactly)."""
+    case, records, every, stops = guard_case
+    _, args, mask = chip_smoke.parity_inputs(case, cuda)
+    b = args[0].shape[0]
+    kw = dict(num_records=records, record_every=every, ctrl_mask=mask)
+    recs = np.random.default_rng(5).integers(1, records, b).tolist()
+    band = chip_smoke.trip_bands(args, kw, recs)
+    gkw = dict(kw, record_beta=True, record_watermarks=True,
+               record_guard=True, guard_lo=-band, guard_hi=band,
+               guard_stop=stops[0])
+    before = bittide_fused.launches
+    got = bittide_fused(*args, **gkw)
+    torch.cuda.synchronize()
+    assert bittide_fused.launches == before + 2
+    want = bittide_fused_torch(*args, **gkw)
+    tstar = int(want.guard_state.min())
+    assert 0 < tstar < stops[0]
+    chip_smoke.kernel_vs_plain(got, want, records=tstar + 1)
+    assert torch.isnan(got.freq[tstar + 1:]).all()
+
+
+def test_tiled_draw_result_independent_of_batch(cuda):
+    """Draws of the second, partial draw group equal the same draws run
+    alone in a group of their own, bit for bit."""
+    _, args, mask = chip_smoke.parity_inputs(("torus3d_8", 9, 2), cuda,
+                                             one_way=True)
+    kw = dict(num_records=3, record_every=3, record_beta=True,
+              record_watermarks=True)
+    full = bittide_tiled(*args, ctrl_mask=mask, **kw)
+    idx = torch.tensor([3, 8], device=cuda)
+    sub = [x[idx].contiguous() if k in _PER_DRAW else x
+           for k, x in enumerate(args)]
+    part = bittide_tiled(*sub, ctrl_mask=mask[idx].contiguous(), **kw)
+    assert torch.equal(full.freq[:, idx], part.freq)
+    assert torch.equal(full.beta[:, idx], part.beta)
+    assert torch.equal(full.psi[idx], part.psi)
+    for got, want in zip(full.watermarks, part.watermarks):
+        assert torch.equal(got[idx], want)
+
+
+def test_run_scenario_on_the_card(cuda):
+    """The cable swap (smoke length) through run_scenario with the device
+    default: the fused and the forced tiled lane launch their kernels and
+    agree bit for bit; the segment-sum lane agrees within the float32
+    floor; the RTT shifts by ≈1231 frames."""
+    topo = tc.fully_connected(8)
+    links = tc.make_links(topo, cable_m=2.0)
+    ppm = np.random.default_rng(0).uniform(-8, 8, (8, 8)).astype(np.float32)
+    swap = edges_between(topo, 0, 2)
+    sc = Scenario(events=(LatencyStep(t=0.2, edges=swap, cable_m=1000.0,
+                                      reestablish=True),))
+    cfg = tc.SimConfig(dt=1e-4, steps=4000, record_every=20)
+    ctrl = tc.ControllerConfig(kp=2e-8)
+    runs = {}
+    for engine, kernel in (("fused", bittide_fused), ("tiled", bittide_tiled),
+                           ("segment-sum", None)):
+        before = kernel.launches if kernel else 0
+        runs[engine] = run_scenario(topo, links, ctrl, ppm, sc, cfg,
+                                    options=tk.EngineOptions(engine=engine),
+                                    telemetry=Telemetry(beta=True))
+        if kernel:
+            assert kernel.launches > before
+    fus, til, seg = runs["fused"], runs["tiled"], runs["segment-sum"]
+    np.testing.assert_array_equal(fus.freq_ppm, til.freq_ppm)
+    np.testing.assert_array_equal(fus.beta, til.beta)
+    floor = chip_smoke.float32_floor_ppm(2e-8, 7, float(np.abs(fus.psi).max()))
+    np.testing.assert_allclose(fus.freq_ppm, seg.freq_ppm, rtol=0,
+                               atol=max(floor, FREQ_ATOL_PPM))
+    shift = int((fus.rtt(1) - fus.rtt(0))[swap[0]])
+    assert abs(shift - 1231) <= 3
+    assert shift == int((seg.rtt(1) - seg.rtt(0))[swap[0]])

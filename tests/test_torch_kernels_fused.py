@@ -86,14 +86,14 @@ def _kernel_inputs(topo, b: int = 5, seed: int = 0):
     rng = np.random.default_rng(seed)
     n = topo.num_nodes
     links = _two_class_links(topo)
-    a, _, classes, _ = tk.densify(convert.topology(topo),
-                                  convert.links(links), device="cpu")
-    assert a.shape[0] == 2
+    a_t, _, classes, _ = tk.densify(convert.topology(topo),
+                                    convert.links(links), device="cpu")
+    assert a_t.shape[0] == 2
     mask = np.ones((b, n), np.float32)
     mask[1, [0, n - 1]] = 0.0
     mask[3, 2] = 0.0
     return dict(
-        links=links, a=a.numpy(),
+        links=links, a_t=a_t.numpy(),
         nu_u=(rng.uniform(-8, 8, (b, n)).astype(np.float32)
               * np.float32(1e-6)),
         kp=(PARITY_KP * rng.uniform(0.5, 1.5, b)).astype(np.float32),
@@ -135,10 +135,10 @@ def _reference_kernel(topo):
 
 def _port_kernel(x, record_beta, record_watermarks):
     t = lambda v: torch.from_numpy(np.ascontiguousarray(v))
-    a = t(x["a"])
+    a_t = t(x["a_t"])
     b, n = x["nu_u"].shape
-    return bittide_fused(torch.zeros(b, n), t(x["nu_u"]), t(x["nu_u"]), a,
-              a.sum(dim=(0, 2)), t(x["lamsum"]), t(x["lat"]), t(x["kp"]),
+    return bittide_fused(torch.zeros(b, n), t(x["nu_u"]), t(x["nu_u"]), a_t,
+              a_t.sum(dim=(0, 1)), t(x["lamsum"]), t(x["lat"]), t(x["kp"]),
               t(x["beta_off"]), DT_FRAMES,
               num_records=PARITY_STEPS // PARITY_REC,
               record_every=PARITY_REC, ctrl_mask=t(x["mask"]),
@@ -303,39 +303,38 @@ def test_watermarks_peak_record_with_ties():
 
 
 def test_padding_nodes_and_draws_are_inert():
-    """Padded nodes (degree 0) and draws leave the real slice's bits
-    unchanged and never move themselves."""
+    """Nodes of degree 0 and draws at rest, padded onto the kernel's
+    inputs by hand (the reference pads to 128-node tiles and 8-draw
+    quanta; the port pads nothing), leave the real slice's bits unchanged
+    and never move themselves."""
     topo = tc.hourglass(4)
     links = convert.links(_two_class_links(topo))
     ppm = np.random.default_rng(6).uniform(-8, 8, (3, 8)).astype(np.float32)
-    base = dict(lat_classes=None, edge_w=None)
-    a, _, classes, n_pad = tops.densify(topo, links, tile=16, device="cpu",
-                                        **base)
-    a8, _, _, _ = tops.densify(topo, links, device="cpu", **base)
-    assert n_pad == 16 and a8.shape[-1] == 8
-    nu_u, b_pad = tops._pad_batch(ppm, 8, n_pad, quantum=4)
-    assert b_pad == 4
-    c = a.shape[0]
-    lat = torch.from_numpy(np.broadcast_to(classes.numpy(),
-                                           (b_pad, c)).copy())
-    kp = torch.from_numpy(tops._pad_gain(np.full(3, 2e-8, np.float32),
-                                         b_pad))
-    lamsum = torch.from_numpy(tops._lamsum_host(
-        topo, np.ones((1, topo.num_edges)), None, 1, n_pad)).expand(
-            b_pad, n_pad).contiguous()
-    mask = torch.from_numpy(tops._resolve_mask(None, 3, 8, b_pad, n_pad))
+    a_t8, _, classes, n = tops.densify(topo, links, device="cpu")
+    assert n == 8
+    c = a_t8.shape[0]
+    a_t = torch.zeros(c, 16, 16)
+    a_t[:, :8, :8] = a_t8
+    nu_u = np.zeros((4, 16), np.float32)
+    nu_u[:3, :8] = ppm * np.float32(1e-6)
+    lat = torch.from_numpy(np.broadcast_to(classes.numpy(), (4, c)).copy())
+    kp = torch.tensor([2e-8, 2e-8, 2e-8, 0.0])
+    lamsum = torch.zeros(4, 16)
+    lamsum[:3, :8] = torch.from_numpy(tops._lamsum_host(
+        topo, np.ones((1, topo.num_edges)), None, 1))
+    mask = torch.ones(1, 16)
     kw = dict(num_records=5, record_every=10, record_beta=True,
               record_watermarks=True)
     nu_t = torch.from_numpy(nu_u)
     padded = bittide_fused_torch(
-        torch.zeros_like(nu_t), nu_t, nu_t, a, a.sum(dim=(0, 2)), lamsum,
-        lat, kp, torch.zeros(b_pad), DT_FRAMES, ctrl_mask=mask, **kw)
+        torch.zeros_like(nu_t), nu_t, nu_t, a_t, a_t.sum(dim=(0, 1)),
+        lamsum, lat, kp, torch.zeros(4), DT_FRAMES, ctrl_mask=mask, **kw)
     sl = (slice(0, 3), slice(0, 8))
     plain = bittide_fused_torch(
-        torch.zeros(3, 8), nu_t[sl].contiguous(), nu_t[sl].contiguous(), a8,
-        a8.sum(dim=(0, 2)), lamsum[sl].contiguous(), lat[:3].contiguous(),
-        kp[:3].contiguous(), torch.zeros(3), DT_FRAMES,
-        ctrl_mask=mask[:, :8].contiguous(), **kw)
+        torch.zeros(3, 8), nu_t[sl].contiguous(), nu_t[sl].contiguous(),
+        a_t8, a_t8.sum(dim=(0, 1)), lamsum[sl].contiguous(),
+        lat[:3].contiguous(), kp[:3].contiguous(), torch.zeros(3),
+        DT_FRAMES, ctrl_mask=mask[:, :8].contiguous(), **kw)
     np.testing.assert_array_equal(padded.freq[:, :3, :8].numpy(),
                                   plain.freq.numpy())
     np.testing.assert_array_equal(padded.psi[:3, :8].numpy(),
@@ -380,7 +379,7 @@ def test_gain_lamsum_and_mask_sweeps_build_nothing_new():
     assert compile_stats()["builds"] == 0
 
 
-@pytest.mark.parametrize("engine", ["tiled", "sparse", "per-step"])
+@pytest.mark.parametrize("engine", ["sparse", "per-step"])
 def test_unported_lanes_raise(engine):
     topo = tc.fully_connected(8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -391,11 +390,15 @@ def test_unported_lanes_raise(engine):
 
 
 def test_auto_outside_fused_regime_and_per_draw_edge_w_raise():
+    """Above the fused regime "auto" takes the tiled lane (it raised until
+    the tiled kernel was ported); per-draw edge weights and the
+    interpreter switch still raise."""
     topo = tc.random_regular(300, 3, 0)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        tk.simulate_ensemble_dense(topo, tc.make_links(topo),
-                                   np.zeros((1, 300)), 10, 2e-9,
-                                   record_every=10, device="cpu")
+    res = tk.simulate_ensemble_dense(topo, tc.make_links(topo),
+                                     np.zeros((1, 300)), 10, 2e-9,
+                                     record_every=10, device="cpu")
+    assert res.engine == "tiled" and res.tile_j == tk.TILE_J
+    assert tk.select_engine(1, 2**17 + 1, 1)[0] == "per-step"
     small = tc.fully_connected(4)
     with pytest.raises(NotImplementedError, match="sparse"):
         tk.simulate_ensemble_dense(small, tc.make_links(small),
@@ -426,9 +429,9 @@ def test_draws_per_cta_fills_the_card():
 def test_wrapper_checks_inputs():
     x, _ = _reference_kernel(KERNEL_TOPOS[0])
     t = lambda v: torch.from_numpy(np.ascontiguousarray(v))
-    a = t(x["a"])
-    args = [torch.zeros(5, 8), t(x["nu_u"]), t(x["nu_u"]), a,
-            a.sum(dim=(0, 2)), t(x["lamsum"]), t(x["lat"]), t(x["kp"]),
+    a_t = t(x["a_t"])
+    args = [torch.zeros(5, 8), t(x["nu_u"]), t(x["nu_u"]), a_t,
+            a_t.sum(dim=(0, 1)), t(x["lamsum"]), t(x["lat"]), t(x["kp"]),
             t(x["beta_off"]), DT_FRAMES]
     kw = dict(num_records=2, record_every=3)
     bad_dtype = list(args)

@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as tc  # noqa: E402
 import repro_torch.kernels as tk  # noqa: E402
+import repro_torch.scenarios as ts  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -32,9 +33,11 @@ def test_imports_with_jax_and_repro_blocked():
         "for name in ('jax', 'jaxlib', 'repro'):\n"
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.convert, repro_torch.core, "
-        "repro_torch.kernels, repro_torch.telemetry\n"
+        "repro_torch.kernels, repro_torch.telemetry, repro_torch.scenarios\n"
         "from repro_torch.kernels import build, ops, ref, bittide_step\n"
-        "from repro_torch.telemetry import compile_stats, watermarks\n"
+        "from repro_torch.telemetry import compile_stats, watermarks, trace\n"
+        "from repro_torch.core import envelopes, reframing\n"
+        "from repro_torch.scenarios import events, compiler, runner\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -61,6 +64,16 @@ def test_card_side_bars_equal_the_harness_bars():
         assert float(value) == getattr(engine_harness, name), name
 
 
+def test_card_tests_take_the_card_side_bars():
+    """tests/test_torch_gpu.py runs where jax is absent: it takes its bars
+    from chip_smoke.py (held to the harness above) and restates none."""
+    text = (ROOT / "tests" / "test_torch_gpu.py").read_text()
+    for name in ("FREQ_ATOL_PPM", "BETA_ATOL_FRAMES"):
+        assert re.search(rf"^{name} = chip_smoke\.{name}$", text, re.M), name
+    assert not re.search(r"^[A-Z_]*ATOL[A-Z_]* = [0-9]", text, re.M)
+    assert not re.search(r"^\s*(import|from)\s+engine_harness", text, re.M)
+
+
 def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     topo = tc.fully_connected(4)
@@ -78,6 +91,16 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: tk.densify(topo, links),
         lambda: tk.simulate_fused(topo, links, np.zeros(4), 10, 2e-9,
                                   device="cuda"),
+        lambda: tk.simulate_ensemble_dense(
+            topo, links, np.zeros((1, 4)), 10, 2e-9, record_every=10,
+            options=tk.EngineOptions(engine="tiled")),
+        lambda: ts.run_scenario(topo, links, tc.ControllerConfig(),
+                                np.zeros(4), ts.Scenario(events=()),
+                                tc.SimConfig(steps=10, record_every=10)),
+        lambda: ts.run_scenario(topo, links, tc.ControllerConfig(),
+                                np.zeros(4), ts.Scenario(events=()),
+                                tc.SimConfig(steps=10, record_every=10),
+                                options=tk.EngineOptions(engine="fused")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -99,4 +122,25 @@ def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
                          torch.zeros(1, device="meta"),
                          torch.zeros(1, device="meta"), 1.0, num_records=1,
                          record_every=1)
+    assert not called
+
+
+@pytest.mark.parametrize("kernel", ["fused", "tiled"])
+def test_cuda_tensor_never_takes_the_plain_version_any_kernel(monkeypatch,
+                                                              kernel):
+    """Both wrappers, guard variant included: a tensor on a device other
+    than the CPU never reaches the plain version."""
+    called = []
+    for name in ("bittide_fused_torch", "bittide_tiled_torch"):
+        monkeypatch.setattr(f"repro_torch.kernels.bittide_step.{name}",
+                            lambda *a, **k: called.append(1))
+    x = torch.zeros(1, 2, device="meta")
+    g = torch.zeros(1, device="meta")
+    wrapper = tk.bittide_fused if kernel == "fused" else tk.bittide_tiled
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        wrapper(x, x, x, torch.zeros(1, 2, 2, device="meta"),
+                torch.zeros(2, device="meta"), x,
+                torch.zeros(1, 1, device="meta"), g, g, 1.0, num_records=1,
+                record_every=1, record_guard=True, guard_lo=g, guard_hi=g,
+                guard_stop=0)
     assert not called
