@@ -5,10 +5,11 @@
 
 Phases, one JSON object per line:
 
-1. build    — nvcc builds ``csrc/bittide_fused.cu`` and
-              ``csrc/bittide_tiled.cu`` in parallel; their ptxas reports
-              (registers, shared memory, spills) and the card's
-              ``nvidia-smi`` name and power limit are printed.
+1. build    — nvcc builds ``csrc/bittide_fused.cu``,
+              ``csrc/bittide_tiled.cu`` and ``csrc/bittide_sparse.cu`` in
+              parallel; their ptxas reports (registers, shared memory,
+              spills) and the card's ``nvidia-smi`` name and power limit
+              are printed.
 2. parity   — each kernel against its plain PyTorch version on the card.
               Fused (``PARITY_CASES``): FC8 at B=64 and at 4·SMs·3 + 5
               draws (three draws per CTA, a partial last CTA), torus3d(6)
@@ -24,7 +25,13 @@ Phases, one JSON object per line:
               (``FUSED_GUARD_CASES``) with draws tripping at different
               records, so that the wrapper's replay runs: FC8 at B=64, and
               torus3d(8) at B=9 with two classes (N=512 > 256: 512 threads
-              per CTA, A read from L2).
+              per CTA, A read from L2).  Sparse (``SPARSE_PARITY_CASES``):
+              FC8 (K=7) at B=64, random_regular(300, 3, 0) at B=9 (the
+              last CTA of each draw partial), the ragged
+              bounded_degree_topo(96, 4, 3) with 2 isolated nodes and 2
+              leaves, the same with K + 2 padded slots, and per-draw
+              tables with a dropped link per draw; every variant and the
+              guard tripping at different records and never; 0.0 error.
 3. fc8      — the main path at users' size: ``simulate_ensemble_dense`` on
               fully_connected(8), B=4096 draws in ±8 ppm, kp=2e-8,
               dt=5e-5, 10,000 steps recorded every 20, β + watermarks;
@@ -64,6 +71,34 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               call's own inputs (``hold_engine_calls``; the cable swap's
               1,000-record calls over their first 50 records).
 
+8. sparse   — the sparse lane at full width: ``simulate_ensemble_dense``
+              with ``engine="auto"`` (which must choose "sparse") on
+              torus3d(100): 1,000,000 nodes, 6,000,000 edges, K=6; B=8
+              draws in ±8 ppm, 2 m cables, kp=2e-8, dt=5e-3, 2,000
+              periods recorded every 100, watermarks.  The kernel against
+              the plain version over every draw at full depth (0.0
+              error), one more launch reproducing the records, ν against
+              the segment-sum lane within ``float32_floor_ppm``; kernel
+              time, the host side piece by piece (the auto probe,
+              ``ellify``, the λeff fold, tables to the card, records
+              back), node-steps/s, memory, the final ν band; every
+              pass's aggregation as two ``torch.sparse`` CSR products,
+              timed over all the call's passes, as a yardstick (the port
+              never calls it).  Then phase 6's run
+              (torus3d(22) × 8 draws) on the sparse lane: both kernels'
+              times side by side, every draw converged.
+9. chaos    — two ``ChaosCampaign``s on the sparse lane, torus3d(8) ×
+              1,024 draws: examples/chaos_campaign.py's full campaign
+              (FreqStep / DriftRamp / LatencyStep samplers, 4,800 steps
+              recorded every 24, ``auto_reframe=True``, depth 32; verdict
+              counts, the shrunk repro must reproduce), and a
+              LinkDropSampler + FreqStepSampler campaign (per-draw
+              weight tables) within ``LINKDROP_ATOL_PPM`` (2e-5 ppm) of
+              the segment-sum lane.  Campaign 1's wall is split by its
+              flight recorder into the engine calls, triage and the rest.
+              Every engine call is held against the plain version on its
+              own inputs at 0.0 error.
+
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
 run with a non-zero exit; without a CUDA card it exits 2 and prints no
@@ -74,6 +109,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -83,6 +119,10 @@ sys.path.insert(0, str(ROOT / "src"))
 # checks that they agree).
 FREQ_ATOL_PPM = 1e-6
 BETA_ATOL_FRAMES = 1e-6
+# tests/test_chaos.py's bar for a LinkDrop campaign on the sparse lane
+# against segment-sum (re-establishment at kp = 2e-8 sets a float32
+# floor); tests/test_torch_package_rules.py checks it too.
+LINKDROP_ATOL_PPM = 2e-5
 
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
@@ -159,6 +199,107 @@ FUSED_GUARD_CASES = ((("fully_connected_8", 64, 2), 20, 20, (19, 7)),
                      (("torus3d_8", 9, 2), 6, 3, (5, 3)))
 
 
+# Sparse kernel-vs-plain cases of phase 2 and of the card tests:
+# (topology, draws, tables).  FC8 (K = 7); random_regular(300, 3, 0) at
+# B = 9 (300 nodes: the last CTA of each draw is partial); the ragged
+# bounded_degree_topo(96, 4, 3) with 2 isolated nodes and 2 leaves; the
+# same with K + 2 always-padded slots; and per-draw tables in which every
+# draw drops its own link (both directions) and has its own latencies.
+SPARSE_PARITY_CASES = (("fully_connected_8", 64, "shared"),
+                       ("random_regular_300", 9, "shared"),
+                       ("bounded_degree_96", 16, "shared"),
+                       ("bounded_degree_96", 16, "extra_slots"),
+                       ("random_regular_300", 9, "per_draw_dropped"))
+SPARSE_RECORDS, SPARSE_EVERY = 6, 5
+
+
+def bounded_degree_topo(n, max_deg, seed=0, isolated=0, leaves=0):
+    """tests/engine_harness.py's random bounded-in-degree digraph (copied:
+    the harness imports jax): node 0 takes max_deg in-edges, the last
+    ``isolated`` nodes none, the ``leaves`` before them one."""
+    import numpy as np
+    from repro_torch.core import Topology
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    first_leaf = n - isolated - leaves
+    for i in range(n - isolated):
+        if i == 0:
+            d = max_deg
+        elif i >= first_leaf:
+            d = 1
+        else:
+            d = int(rng.integers(1, max_deg + 1))
+        others = np.delete(np.arange(n), i)
+        picks = rng.choice(others, size=d, replace=False)
+        src.extend(int(p) for p in picks)
+        dst.extend([i] * d)
+    return Topology(n, np.asarray(src, np.int32), np.asarray(dst, np.int32),
+                    name=f"bounded_deg_{n}_{max_deg}_{seed}"
+                         f"{'_iso' + str(isolated) if isolated else ''}")
+
+
+def sparse_parity_inputs(case, dev):
+    """(topology, sparse kernel args ending in Δ = 125,000 frames,
+    per-draw mask) of one of ``SPARSE_PARITY_CASES``: ν_u in ±8 ppm, kp
+    = 2e-8 jittered per draw, β_off in ±1, λeff folds of per-edge values
+    in ±1 frame (0 at a node without in-edges), holdover on nodes 0 and 1
+    for about half the draws, every edge its own latency in 5..60
+    frames."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fully_connected, random_regular
+    from repro_torch.kernels.bittide_sparse import ellify, max_in_degree
+    name, b, tables = case
+    topo = {"fully_connected_8": lambda: fully_connected(8),
+            "random_regular_300": lambda: random_regular(300, 3, 0),
+            "bounded_degree_96": lambda: bounded_degree_topo(
+                96, 4, 3, isolated=2, leaves=2)}[name]()
+    n, e = topo.num_nodes, topo.num_edges
+    rng = np.random.default_rng(4)
+    per_draw = tables == "per_draw_dropped"
+    lat_f = rng.uniform(5.0, 60.0, (b, e) if per_draw else e)
+    edge_w = None
+    if per_draw:
+        rev = topo.reverse_edge_index()
+        edge_w = np.ones((b, e))
+        for d, pick in enumerate(rng.integers(0, e, b)):
+            edge_w[d, [pick, rev[pick]]] = 0.0
+    max_deg = max_in_degree(topo) + (2 if tables == "extra_slots" else 0)
+    nbr, latf, w = ellify(topo, lat_f, edge_w=edge_w, max_deg=max_deg)
+    put = lambda x: torch.as_tensor(np.array(x, np.float32), device=dev)
+    nu_u = put(rng.uniform(-8, 8, (b, n)) * 1e-6)
+    mask = np.ones((b, n), np.float32)
+    mask[:, :2] = np.where(rng.random((b, 1)) < 0.5, 0.0, 1.0)
+    lamsum = (w * rng.uniform(-1, 1, (b,) + w.shape[1:])).sum(axis=1)
+    args = (torch.zeros_like(nu_u), nu_u.clone(), nu_u,
+            torch.as_tensor(nbr, device=dev), put(latf), put(w),
+            put(lamsum),
+            put(2e-8 * rng.uniform(0.5, 1.5, b)), put(rng.uniform(-1, 1, b)),
+            125000.0)
+    return topo, args, put(mask)
+
+
+def sparse_variants(args, kw, b):
+    """The four variants, then the guard with bands that trip draw i near
+    record 1 + i % 3 and with bands that never trip."""
+    import torch
+    from repro_torch.kernels.bittide_sparse import bittide_sparse_torch
+    base = bittide_sparse_torch(*args, **dict(kw, record_beta=True))
+    deg = args[5].sum(dim=1).clamp(min=1.0)
+    peak = (base.beta.abs() / deg).amax(dim=2)                 # (R, B)
+    out = [dict(record_beta=beta, record_watermarks=wm)
+           for beta, wm in ((False, False), (True, False), (False, True),
+                            (True, True))]
+    for trips in (True, False):
+        band = torch.stack([peak[1 + i % 3, i] * 0.999 if trips
+                            else 10 * peak.max() for i in range(b)])
+        out.append(dict(record_beta=True, record_watermarks=True,
+                        record_guard=True, guard_lo=(-band).contiguous(),
+                        guard_hi=band.contiguous(),
+                        guard_stop=kw["num_records"] - 1))
+    return out
+
+
 def one_way_links(topo):
     """2 m cables, plus 1000 m on the single directed edge 0 → 1."""
     import numpy as np
@@ -186,12 +327,12 @@ def parity_inputs(case, dev, one_way=False):
     return topo, args + (125000.0,), mask
 
 
-def kernel_vs_plain(got, want, records=None) -> dict:
+def kernel_vs_plain(got, want, records=None, exact=False) -> dict:
     """The kernel's errors against the plain version's outputs over the
     first ``records`` records (all by default; a guard freeze leaves the
     later ones unrun); raises when one leaves its bar (ν at
     FREQ_ATOL_PPM, β and max |β| at BETA_ATOL_FRAMES, watermark and trip
-    indices exactly)."""
+    indices exactly; with ``exact`` every error must be 0.0)."""
     import torch
     r = slice(None) if records is None else slice(0, records)
     err = dict(freq_err_ppm=float(
@@ -213,6 +354,9 @@ def kernel_vs_plain(got, want, records=None) -> dict:
     assert err.get("beta_err_frames", 0.0) <= BETA_ATOL_FRAMES, err
     assert err.get("beta_abs_max_err_frames", 0.0) <= BETA_ATOL_FRAMES, err
     assert err.get("peak_record_equal", True), err
+    if exact:
+        assert all(v == 0.0 for k, v in err.items() if k.endswith(
+            ("_ppm", "_frames"))), err
     return err
 
 
@@ -324,7 +468,7 @@ def phase_parity(dev):
                                                   launch_plan,
                                                   tiled_launch_plan)
     worst = {k: dict(freq_ppm=0.0, beta_frames=0.0)
-             for k in ("bittide_fused", "bittide_tiled")}
+             for k in ("bittide_fused", "bittide_tiled", "bittide_sparse")}
 
     def note(kernel, row):
         emit(row)
@@ -427,7 +571,50 @@ def phase_parity(dev):
         # One band set trips inside the chunk, the other never.
         assert trip_rows[0] < TILED_RECORDS - 1 and \
             trip_rows[1] == TILED_RECORDS, trip_rows
+    sparse_parity(dev, note)
     return worst
+
+
+def sparse_parity(dev, note):
+    """Phase 2's sparse cases: every variant of every case of
+    ``SPARSE_PARITY_CASES`` against the plain version at 0.0 error, each
+    row passed to ``note``."""
+    import torch
+    from repro_torch.kernels.bittide_sparse import (bittide_sparse,
+                                                    bittide_sparse_torch)
+    from repro_torch.kernels.bittide_step import sparse_tile
+    for case in SPARSE_PARITY_CASES:
+        topo, args, mask = sparse_parity_inputs(case, dev)
+        b, n = args[0].shape
+        kw = dict(num_records=SPARSE_RECORDS, record_every=SPARSE_EVERY,
+                  ctrl_mask=mask)
+        trip_rows = []
+        for v in sparse_variants(args, kw, b):
+            before = bittide_sparse.launches
+            got = bittide_sparse(*args, **kw, **v)
+            torch.cuda.synchronize()
+            assert bittide_sparse.launches == before + 1
+            want = bittide_sparse_torch(*args, **kw, **v)
+            valid = SPARSE_RECORDS
+            row = dict(phase="parity", kernel="bittide_sparse",
+                       topology=topo.name, draws=b, tables=case[2],
+                       k=int(args[3].shape[0]),
+                       table_rows=int(args[4].shape[0]),
+                       beta=v["record_beta"],
+                       watermarks=v["record_watermarks"],
+                       guard=v.get("record_guard", False),
+                       nodes_per_cta=sparse_tile(n))
+            if row["guard"]:
+                row["earliest_trip"] = int(want.guard_state.min())
+                valid = min(row["earliest_trip"], SPARSE_RECORDS - 1) + 1
+                trip_rows.append(row["earliest_trip"])
+                row["frozen_records_nan"] = bool(
+                    torch.isnan(got.freq[valid:]).all())
+                assert row["frozen_records_nan"], row
+            row.update(kernel_vs_plain(got, want, records=valid, exact=True))
+            note("bittide_sparse", row)
+        assert trip_rows[0] < SPARSE_RECORDS - 1 and \
+            trip_rows[1] == SPARSE_RECORDS, trip_rows
 
 
 def timed(fn):
@@ -649,12 +836,16 @@ def run_tiled(dev, k=22, b=8, steps=2_000, rec=100):
 
 
 @contextlib.contextmanager
-def recorded_engine_calls():
-    """Record every dense-engine call that ``run_scenario`` makes, as
-    (its arguments by name, its outputs)."""
+def recorded_engine_calls(module=None, name="_fused_engine"):
+    """Record every call of the engine entry ``name`` in ``module`` (the
+    scenario runner's dense engine by default; ``_sparse_engine`` for the
+    sparse lane, and ``repro_torch.kernels.ops`` for the runners of
+    ``simulate_ensemble_dense``), as (its arguments by name, its
+    outputs)."""
     import inspect
-    from repro_torch.scenarios import runner
-    inner = runner._fused_engine
+    if module is None:
+        from repro_torch.scenarios import runner as module
+    inner = getattr(module, name)
     sig = inspect.signature(inner)
     calls = []
 
@@ -664,11 +855,46 @@ def recorded_engine_calls():
         bound_args.apply_defaults()
         calls.append((dict(bound_args.arguments), out))
         return out
-    runner._fused_engine = record
+    setattr(module, name, record)
     try:
         yield calls
     finally:
-        runner._fused_engine = inner
+        setattr(module, name, inner)
+
+
+def sparse_call_args(a):
+    """(args, kw) of ``bittide_sparse`` for one recorded ``_sparse_engine``
+    call."""
+    args = (a["psi"], a["nu"], a["nu_u"], a["nbr"], a["latf"], a["w"],
+            a["lamsum"], a["kp"], a["beta_off"], a["dt_frames"])
+    kw = dict(num_records=a["num_records"], record_every=a["record_every"],
+              ctrl_mask=a["ctrl_mask"], record_beta=a["record_beta"],
+              record_watermarks=a["record_watermarks"],
+              record_guard=a["record_guard"], guard_lo=a["guard_lo"],
+              guard_hi=a["guard_hi"], guard_stop=a["guard_stop"])
+    return args, kw
+
+
+def hold_sparse_calls(calls) -> dict:
+    """Hold each recorded sparse-engine call against the plain version on
+    the call's own inputs, at its full depth and at 0.0 error (records up
+    to the guard's freeze, trip records equal); returns the worst errors
+    and the number of calls held."""
+    from repro_torch.kernels.bittide_sparse import bittide_sparse_torch
+    worst = dict(calls=0, freq_ppm=0.0, beta_frames=0.0, psi_frames=0.0)
+    for a, out in calls:
+        args, kw = sparse_call_args(a)
+        want = bittide_sparse_torch(*args, **kw)
+        valid = kw["num_records"]
+        if kw["record_guard"]:
+            valid = min(int(want.guard_state.min()), kw["guard_stop"]) + 1
+        err = kernel_vs_plain(out, want, records=valid, exact=True)
+        worst["calls"] += 1
+        worst["freq_ppm"] = max(worst["freq_ppm"], err["freq_err_ppm"])
+        worst["beta_frames"] = max(worst["beta_frames"],
+                                   err.get("beta_err_frames", 0.0))
+        worst["psi_frames"] = max(worst["psi_frames"], err["psi_err_frames"])
+    return worst
 
 
 def hold_engine_calls(calls, max_records: int) -> dict:
@@ -839,6 +1065,324 @@ def run_scenarios(dev, b=256, steps=40_000):
                               "bittide_fused"])
 
 
+def sparse_bound(b, n, k, e, steps, records, table_rows, wm):
+    """(bound_ms, bound_by) for one call of the sparse kernel.
+
+    Bytes: every input read once (the tables, (4 + 8·R)·K·N; ψ, ν, ν_u,
+    lamsum; mask, gains), every output written once (ψ, ν, the ν records,
+    the watermarks).  Operations: what the function needs on this run's
+    data — the degrees once (K·N·R adds: the tables are fixed for the
+    call), per period 4 per real edge (ν·lat, ψ − ·, w·, acc +) and 10
+    per node, and per record's measure pass the row mean (N + chunks + 1
+    per draw), 4 per edge and 8 per node (the node's centring ψ − mean
+    among them: the gathers read centred ψ, not one subtraction each).
+    """
+    nodes = b * n
+    in_bytes = (4 + 8 * table_rows) * k * n + 4 * (4 * nodes + n + 2 * b)
+    out_bytes = 4 * (2 * nodes + records * nodes + 4 * wm * nodes)
+    ops = k * n * table_rows + b * steps * (4 * e + 10 * n)
+    if wm:
+        ops += b * records * (n + -(-n // 1024) + 1 + 4 * e + 8 * n)
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def run_sparse(dev, k=100, b=8, steps=2_000, rec=100):
+    """Phase 8: the sparse lane at full width (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (ControllerConfig, SimConfig, make_links,
+                                  simulate_ensemble, torus3d)
+    from repro_torch.core.frame_model import OMEGA_NOM
+    from repro_torch.kernels import ops, simulate_ensemble_dense
+    from repro_torch.kernels.bittide_sparse import (bittide_sparse,
+                                                    bittide_sparse_torch,
+                                                    ellify)
+    from repro_torch.telemetry import Telemetry
+    kp, dt = 2e-8, 5e-3
+    t0 = time.perf_counter()
+    topo = torus3d(k)
+    topology_build_s = time.perf_counter() - t0
+    n, e = topo.num_nodes, topo.num_edges
+    links = make_links(topo, cable_m=2.0)
+    ppm = np.random.default_rng(0).uniform(-8, 8, (b, n))
+    tel = Telemetry(watermarks=True)
+    records = steps // rec
+    call = lambda: simulate_ensemble_dense(topo, links, ppm, steps, kp,
+                                           dt=dt, record_every=rec,
+                                           telemetry=tel)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bittide_sparse.launches = 0
+    t0 = time.perf_counter()
+    with recorded_engine_calls(ops, "_sparse_engine") as calls:
+        res = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bittide_sparse.launches
+    mem = torch.cuda.max_memory_allocated()
+    assert launches >= 1, "sparse: the main path launched no sparse kernel"
+    assert res.engine == "sparse", res.engine
+    freq, psi = res
+    assert freq.shape == (b, records, n), freq.shape
+    assert np.isfinite(freq).all() and np.isfinite(psi).all()
+    assert np.isfinite(res.watermarks.beta_abs_max).all()
+    (a, out), = calls
+    del calls
+    args, kw = sparse_call_args(a)
+
+    # One more launch on the main path's inputs reproduces its records.
+    again = bittide_sparse(*args, **kw)
+    host = lambda x: x.transpose(0, 1).cpu().numpy()
+    assert np.array_equal(host(again.freq * 1e6), freq), \
+        "sparse: the compared launch differs from the main path's"
+    del again
+    kernel_ms = cuda_ms(lambda: bittide_sparse(*args, **kw), 1)
+
+    # The plain version over every draw at full depth.
+    want, plain_s = timed(lambda: bittide_sparse_torch(*args, **kw))
+    err = kernel_vs_plain(out, want, exact=True)
+    del want
+
+    # The segment-sum lane on the card over every draw.
+    ss = simulate_ensemble(topo, links, ControllerConfig(kp=kp), ppm,
+                           SimConfig(dt=dt, steps=steps, record_every=rec,
+                                     record_beta=False))
+    err_ss = float(np.abs(freq - ss.freq_ppm).max())
+    bar = max(FREQ_ATOL_PPM, float32_floor_ppm(kp, 6,
+                                               float(np.abs(psi).max())))
+    del ss
+
+    # The host side of the call, piece by piece (medians of 3), beside
+    # the call's wall (median of 3 more calls).
+    median = lambda fn: float(np.median([timed(fn)[1] for _ in range(3)]))
+    from repro_torch.kernels.ops import _lamsum_host, latency_classes
+    lat_f = np.asarray(links.latency_s, np.float64) * OMEGA_NOM
+    tables = ellify(topo, lat_f)
+
+    def back():
+        host(out.freq * 1e6)
+        out.psi.cpu(), out.nu.cpu()
+        [x.cpu() for x in out.watermarks]
+    split = dict(
+        auto_probe_s=median(lambda: ops._auto_is_sparse(
+            topo, b, lambda: len(latency_classes(lat_f, warn=False)[0]))),
+        ellify_s=median(lambda: ellify(topo, lat_f)),
+        lamsum_fold_s=median(lambda: _lamsum_host(
+            topo, np.asarray(links.beta0)[None], None, 1)),
+        tables_to_card_s=median(lambda: [torch.as_tensor(x, device=dev)
+                                         for x in tables]),
+        records_to_host_s=median(back))
+    split["wall_s_median3"] = float(np.median([timed(call)[1]
+                                               for _ in range(3)]))
+    split["rest_of_call_s"] = split["wall_s_median3"] - kernel_ms * 1e-3 \
+        - sum(v for key, v in split.items() if key.endswith("_s")
+              and key not in ("wall_s_median3",))
+
+    # Yardstick (not used by the port): each pass's aggregation as two
+    # torch.sparse CSR products, w·ψ and (w·lat)·ν, on (N, B) operands.
+    idx = torch.as_tensor(np.stack([topo.dst, topo.src]).astype(np.int64),
+                          device=dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # "sparse CSR is in beta"
+        w_csr = torch.sparse_coo_tensor(
+            idx, torch.ones(e, device=dev), (n, n)).coalesce().to_sparse_csr()
+        wl_csr = torch.sparse_coo_tensor(
+            idx, torch.as_tensor(lat_f.astype(np.float32), device=dev),
+            (n, n)).coalesce().to_sparse_csr()
+    # Timed over all of phase 8's passes in one run of CUDA events, each
+    # pass's products dropped before the next.
+    xp = args[0].t().contiguous()
+    xn = args[2].t().contiguous()
+    passes = steps + records
+
+    def spmm_passes(count):
+        for _ in range(count):
+            torch.sparse.mm(w_csr, xp), torch.sparse.mm(wl_csr, xn)
+    spmm_passes(1)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    spmm_passes(passes)
+    stop.record()
+    torch.cuda.synchronize()
+    library_ms = start.elapsed_time(stop)
+    del w_csr, wl_csr, xp, xn
+
+    bound_ms, bound_by = sparse_bound(b, n, int(args[3].shape[0]), e, steps,
+                                      records, int(args[4].shape[0]), True)
+    band = freq[:, -1].max(axis=1) - freq[:, -1].min(axis=1)
+    out_row = dict(
+        phase="sparse", topology=topo.name, nodes=n, edges=e, draws=b,
+        k=int(args[3].shape[0]), steps=steps, record_every=rec, dt=dt, kp=kp,
+        engine=res.engine, nodes_per_cta=res.tile_j, launches=launches,
+        passes=passes, kernel_launches_per_call=steps + 3 * records,
+        topology_build_s=topology_build_s, wall_s=wall, kernel_ms=kernel_ms,
+        kernel_ms_per_pass=kernel_ms / passes,
+        node_steps_per_s_kernel=b * n * steps / (kernel_ms * 1e-3),
+        node_steps_per_s_wall=b * n * steps / wall,
+        max_memory_allocated=mem, **split,
+        plain_ms=plain_s * 1e3, plain_work="the main path's (full depth)",
+        kernel_vs_plain_draws=b,
+        **{f"kernel_vs_plain_{key}": v for key, v in err.items()},
+        segment_sum_draws=b, freq_err_vs_segment_sum_ppm=err_ss,
+        segment_sum_bar_ppm=bar, bound_ms=bound_ms, bound_by=bound_by,
+        period_stream_bound_ms_per_pass=(
+            (12 * int(args[3].shape[0]) * n + 24 * b * n)
+            / PEAK_BYTES_PER_S * 1e3),
+        library_ms=library_ms, library_ms_per_pass=library_ms / passes,
+        final_band_ppm_max=float(band.max()),
+        final_band_ppm_p50=float(np.median(band)))
+    assert err_ss <= bar, out_row
+    return out_row
+
+
+def run_sparse_fig18(dev, tiled, k=22, b=8, steps=2_000, rec=100):
+    """Phase 8b: phase 6's run (torus3d(22), same draws and settings) on
+    the sparse lane instead of the tiled one; both kernels timed with CUDA
+    events in this run on the main path's own inputs."""
+    import numpy as np
+    from repro_torch.core import make_links, torus3d
+    from repro_torch.kernels import EngineOptions, ops, simulate_ensemble_dense
+    from repro_torch.kernels.bittide_sparse import bittide_sparse
+    from repro_torch.telemetry import Telemetry
+    topo = torus3d(k)
+    n = topo.num_nodes
+    ppm = np.random.default_rng(0).uniform(-8, 8, (b, n))
+    with recorded_engine_calls(ops, "_sparse_engine") as calls:
+        res = simulate_ensemble_dense(
+            topo, make_links(topo, cable_m=2.0), ppm, steps, 2e-8, dt=5e-3,
+            record_every=rec, options=EngineOptions(engine="sparse"),
+            telemetry=Telemetry(watermarks=True))
+    (a, _), = calls
+    args, kw = sparse_call_args(a)
+    sparse_ms = cuda_ms(lambda: bittide_sparse(*args, **kw), 3)
+    times = (np.arange(1, steps // rec + 1) * rec) * 5e-3
+    row = dict(phase="sparse_fig18", topology=topo.name, nodes=n, draws=b,
+               steps=steps, record_every=rec, engine=res.engine,
+               sparse_kernel_ms=sparse_ms, tiled_kernel_ms=tiled["kernel_ms"],
+               tiled_over_sparse=tiled["kernel_ms"] / sparse_ms,
+               **summary(res[0], times))
+    assert row["converged_draws"] == b, row
+    return row
+
+
+def run_chaos(dev, draws=1024):
+    """Phase 9: two chaos campaigns on the sparse lane (see the module
+    docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (ControllerConfig, SimConfig, make_links,
+                                  torus3d)
+    from repro_torch.kernels import EngineOptions
+    from repro_torch.kernels.bittide_sparse import bittide_sparse
+    from repro_torch.scenarios import (ChaosCampaign, DriftRampSampler,
+                                       FreqStepSampler, LatencyStepSampler,
+                                       LinkDropSampler, edges_between,
+                                       run_scenario, runner, triage_result)
+    from repro_torch.telemetry import Telemetry
+    topo = torus3d(8)
+    links = make_links(topo, cable_m=2.0)
+    ctrl = ControllerConfig(kp=2e-8)
+    out = {}
+
+    # 1. examples/chaos_campaign.py's full campaign on the sparse lane.
+    steps = 4800
+    cfg = SimConfig(dt=1e-3, steps=steps, record_every=24)
+    t_hold = steps * cfg.dt
+    camp = ChaosCampaign(
+        topo=topo, ctrl=ctrl,
+        samplers=(
+            FreqStepSampler(t=0.15 * t_hold, ppm_range=(0.05, 6.0)),
+            DriftRampSampler(t=0.35 * t_hold, t_end=0.6 * t_hold,
+                             rate_range=(0.05, 2.0)),
+            LatencyStepSampler(t=0.5 * t_hold,
+                               edges=edges_between(topo, 0, 1),
+                               cable_range=(5.0, 200.0))),
+        num_draws=draws, seed=0, ppm_range=0.05, links=links, cfg=cfg,
+        engine="sparse", auto_reframe=True, depth=32, name="torus512")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bittide_sparse.launches = 0
+    t0 = time.perf_counter()
+    with recorded_engine_calls(runner, "_sparse_engine") as calls:
+        result = camp.run(telemetry=Telemetry(trace=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bittide_sparse.launches
+    mem = torch.cuda.max_memory_allocated()
+    assert launches >= 1 and result.result.engine == "sparse"
+    assert np.isfinite(result.result.freq_ppm).all()
+    # Where the wall goes: the engine calls (the trace's chunk spans: the
+    # launches, the guard's trip read and the record copies), triage (run
+    # again, timed), and the rest (segment prep, rotations, the build).
+    chunk_s = sum(ev.dur for ev in result.result.trace.by_kind("chunk"))
+    _, triage_s = timed(lambda: triage_result(result.result, depth=32))
+    held = hold_sparse_calls(calls)
+    del calls
+    shrunk = result.shrink()
+    t0 = time.perf_counter()
+    reproduces = shrunk.reproduces
+    shrink_s = time.perf_counter() - t0
+    row = dict(phase="chaos", campaign=camp.name, topology=topo.name,
+               draws=draws, steps=steps, record_every=24, engine="sparse",
+               launches=launches, engine_calls=result.result.num_launches,
+               splices=len(result.result.reframes), wall_s=wall,
+               engine_calls_s=chunk_s, triage_s=triage_s,
+               rest_of_wall_s=wall - chunk_s - triage_s,
+               node_steps_per_s_wall=draws * topo.num_nodes * steps / wall,
+               max_memory_allocated=mem, verdicts=result.counts(),
+               survival_rate=result.survival_rate(),
+               worst_draw=shrunk.draw_index,
+               worst_verdict=shrunk.expected_verdict,
+               shrink_reproduces=reproduces, shrink_replay_s=shrink_s,
+               kernel_vs_plain=held)
+    emit(row)
+    assert reproduces, row
+    assert sum(row["verdicts"].values()) == draws, row
+    out["launches"] = launches
+    out["held"] = [held]
+
+    # 2. Per-draw LinkDrop victims (per-draw slot weights) + FreqStep,
+    # against the segment-sum lane on the card.
+    cfg2 = SimConfig(dt=1e-3, steps=240, record_every=12)
+    camp2 = ChaosCampaign(
+        topo=topo, ctrl=ctrl,
+        samplers=(FreqStepSampler(t=0.06, ppm_range=(1.0, 4.0)),
+                  LinkDropSampler(t=0.1, t_restore=0.16)),
+        num_draws=draws, seed=5, ppm_range=8.0, links=links, cfg=cfg2,
+        engine="sparse", name="torus512-linkdrop")
+    bittide_sparse.launches = 0
+    t0 = time.perf_counter()
+    with recorded_engine_calls(runner, "_sparse_engine") as calls:
+        result2 = camp2.run()
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches2 = bittide_sparse.launches
+    assert launches2 >= 1 and result2.result.engine == "sparse"
+    assert any(a["w"].shape[0] == draws for a, _ in calls), \
+        "the LinkDrop campaign ran no per-draw weight table"
+    held2 = hold_sparse_calls(calls)
+    del calls
+    seg = run_scenario(topo, links, ctrl, result2.ppm_u, result2.scenario,
+                       cfg2, options=EngineOptions(engine="segment-sum"),
+                       telemetry=Telemetry(beta=True))
+    err = float(np.abs(result2.result.freq_ppm - seg.freq_ppm).max())
+    row2 = dict(phase="chaos", campaign=camp2.name, topology=topo.name,
+                draws=draws, steps=240, record_every=12, engine="sparse",
+                launches=launches2, engine_calls=result2.result.num_launches,
+                wall_s=wall2, verdicts=result2.counts(),
+                freq_err_vs_segment_sum_ppm=err,
+                segment_sum_bar_ppm=LINKDROP_ATOL_PPM, kernel_vs_plain=held2)
+    emit(row2)
+    assert err <= LINKDROP_ATOL_PPM, row2
+    out["launches"] += launches2
+    out["held"].append(held2)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -853,10 +1397,11 @@ def main() -> int:
     from repro_torch.telemetry import Telemetry
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
+    t_start = time.perf_counter()
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = build.build(["bittide_fused", "bittide_tiled"])
+    libs = build.build(["bittide_fused", "bittide_tiled", "bittide_sparse"])
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".so.log")
@@ -923,12 +1468,20 @@ def main() -> int:
     # 7. the scenario runner
     scen = run_scenarios(dev)
 
-    # 8. kernels line, card line, last line.  Launches: the main paths'
-    # counts (phases 3, 4, 6 and 7; a wrapper counts its calls that
-    # launched — one bittide_tiled call launches a kernel per period and
-    # two per measure pass from C).  Errors: the worst over every
-    # comparison with the plain version (phase 2, the main paths'
-    # launches, phase 7's engine calls).
+    # 8. the sparse lane at full width, and at phase 6's size
+    sparse = run_sparse(dev)
+    emit(sparse)
+    emit(run_sparse_fig18(dev, tiled))
+
+    # 9. chaos campaigns on the sparse lane
+    chaos = run_chaos(dev)
+
+    # The kernels line, the card line, the last line.  Launches: the main
+    # paths' counts (phases 3, 4, 6, 7, 8 and 9; a wrapper counts its calls
+    # that launched — one bittide_tiled or bittide_sparse call launches a
+    # kernel per period and two or three per measure pass from C).
+    # Errors: the worst over every comparison with the plain version
+    # (phase 2, the main paths' launches, phases 7 and 9's engine calls).
     errs = {k: dict(w) for k, w in worst.items()}
 
     def fold(kernel, freq_ppm, beta_frames):
@@ -941,6 +1494,10 @@ def main() -> int:
              row.get("kernel_vs_plain_beta_err_frames", 0.0))
     for kernel, h in zip(scen["held_kernels"], scen["held"]):
         fold(kernel, h["freq_ppm"], h["beta_frames"])
+    fold("bittide_sparse", sparse["kernel_vs_plain_freq_err_ppm"], 0.0)
+    for h in chaos["held"]:
+        fold("bittide_sparse", h["freq_ppm"], h["beta_frames"])
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     no_library = ("no single PyTorch call runs the period loop (a matmul "
                   "covers only one period's aggregation)")
     emit({"kernels": [
@@ -966,7 +1523,23 @@ def main() -> int:
              plain_work=tiled["plain_work"],
              ms_same_work_as_plain=tiled["kernel_ms_same_work"],
              bound_ms=tiled["bound_ms"], bound_by=tiled["bound_by"],
-             library_ms=None, library_note=no_library)]})
+             library_ms=None, library_note=no_library),
+        dict(name="bittide_sparse", route="cuda",
+             source="src/repro_torch/kernels/csrc/bittide_sparse.cu",
+             replaces="src/repro/kernels/bittide_sparse.py:161 "
+                      "(_sparse_kernel)",
+             launches=sparse["launches"] + chaos["launches"],
+             max_abs_err=errs["bittide_sparse"]["freq_ppm"],
+             max_err_ppm=errs["bittide_sparse"]["freq_ppm"],
+             max_beta_err_frames=errs["bittide_sparse"]["beta_frames"],
+             ms=sparse["kernel_ms"], plain_ms=sparse["plain_ms"],
+             plain_work=sparse["plain_work"],
+             bound_ms=sparse["bound_ms"], bound_by=sparse["bound_by"],
+             library_ms=sparse["library_ms"],
+             library_note=("two torch.sparse CSR products per pass (w·ψ and "
+                           "(w·lat)·ν, (N, N) x (N, B)), timed over phase "
+                           f"8's {sparse['passes']} passes; the aggregation "
+                           "only, not the update; not used by the port"))]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -18,10 +18,11 @@ class EngineOptions:
 
     Attributes:
       engine: lane name — "auto" dispatches by shape (the H100 regime
-        table); "fused" and "tiled" are the dense lanes this port has,
-        and ``run_scenario`` also takes "segment-sum" (its default).
-        "sparse" and "per-step" raise ``NotImplementedError`` until their
-        kernels are ported.
+        table); "fused" and "tiled" are the dense lanes, "sparse" the ELL
+        lane for bounded-degree networks (and per-draw edge weights), and
+        ``run_scenario`` also takes "segment-sum" (its default).
+        "per-step" raises ``NotImplementedError`` until its kernel is
+        ported.
       interpret: the reference's switch for the Pallas interpreter.  The
         port has no interpreter: a truthy value raises (pass
         ``device="cpu"`` to run the plain PyTorch versions instead).

@@ -58,8 +58,9 @@ from .api import EngineOutputs
 __all__ = ["bittide_fused", "bittide_fused_torch", "bittide_tiled",
            "bittide_tiled_torch", "select_engine", "draws_per_cta",
            "launch_plan", "tiled_launch_plan", "FUSED_N_MAX", "KERNEL_N_MAX",
-           "MAX_CLASSES", "TILE_I", "TILE_J", "TILED_STACK_BYTES_MAX",
-           "VARIANTS_USED"]
+           "MAX_CLASSES", "SPARSE_TILE", "TILE_I", "TILE_J",
+           "TILED_STACK_BYTES_MAX", "VARIANTS_USED", "sparse_bytes",
+           "sparse_tile"]
 
 # The H100 regime table.
 # * fused: a draw's nodes are the threads of one CTA, so the kernel holds
@@ -70,6 +71,10 @@ __all__ = ["bittide_fused", "bittide_fused_torch", "bittide_tiled",
 #   memory beside the state — TILED_STACK_BYTES_MAX leaves 16 GiB of the
 #   H100's 80 GB to everything else.  Each period streams the whole stack
 #   (memory-bound: torus3d(22), 453.5 MB per pass).
+# * sparse: beyond the tiled regime, for a caller that gives the degree
+#   bound (the ELL slot count K), while the O(K·N) tables and the O(B·N)
+#   state fit the same budget: one period reads (4 + 8)·K·N bytes of
+#   tables, not a stack.
 # * beyond: the per-step lane of the reference (not ported yet).
 FUSED_N_MAX = 256
 KERNEL_N_MAX = 1024
@@ -80,6 +85,7 @@ TILE_J = 64                # tiled kernel: source nodes per panel
 TILED_GROUP_MAX = 8        # tiled kernel: draws per CTA
 TILED_DRAWS_PER_WARP = 4   # tiled kernel: accumulators per thread
 TILED_STACK_BYTES_MAX = 64 * 2**30
+SPARSE_TILE = 256          # sparse kernel: nodes per CTA, one draw per CTA
 
 # Kernel instances the wrappers selected in this process, keyed by what
 # the CUDA side keys on: (kernel, record_beta, record_watermarks,
@@ -88,16 +94,35 @@ TILED_STACK_BYTES_MAX = 64 * 2**30
 VARIANTS_USED: set = set()
 
 
-def select_engine(b: int, n: int, c: int) -> Tuple[str, int]:
+def sparse_tile(n: int) -> int:
+    """The sparse kernel's nodes per CTA for N nodes: SPARSE_TILE, or N
+    rounded up to a warp when the network is smaller."""
+    return min(SPARSE_TILE, -(-n // 32) * 32)
+
+
+def sparse_bytes(b: int, n: int, k: int) -> int:
+    """Device bytes of a sparse-lane call beside its records: the shared
+    tables (nbr, latf, w) and ten (B, N) float32 state arrays (ψ / ν in
+    and the ping-pong pair, ν_u, lamsum, mask)."""
+    return 12 * k * n + 40 * b * n
+
+
+def select_engine(b: int, n: int, c: int,
+                  max_deg: Optional[int] = None) -> Tuple[str, int]:
     """H100 dispatch: ``("fused", n)`` for n ≤ FUSED_N_MAX nodes and at
     most MAX_CLASSES latency classes; else ``("tiled", panel width)``
-    while the stack fits TILED_STACK_BYTES_MAX; else ``("per-step", 0)``,
-    the reference's last lane, which is not ported yet."""
-    del b
+    while the stack fits TILED_STACK_BYTES_MAX; else, when the caller
+    gives the ELL slot count ``max_deg`` and the sparse lane's tables and
+    state fit the same budget, ``("sparse", nodes per CTA)`` (at C = 1:
+    N > 131,072); else ``("per-step", 0)``, the reference's last lane,
+    which is not ported yet."""
     if n <= FUSED_N_MAX and c <= MAX_CLASSES:
         return "fused", n
     if 4 * c * n * n <= TILED_STACK_BYTES_MAX:
         return "tiled", min(TILE_J, n)
+    if max_deg is not None and \
+            sparse_bytes(b, n, int(max_deg)) <= TILED_STACK_BYTES_MAX:
+        return "sparse", sparse_tile(n)
     return "per-step", 0
 
 
@@ -119,10 +144,16 @@ def _library(name: str) -> ctypes.CDLL:
             + [ci, vp, vp])
         lib.bittide_smem_optin.restype = ci
         lib.bittide_smem_optin.argtypes = []
-    else:
+    elif name == "bittide_tiled":
         lib.bittide_tiled_launch.restype = ci
         lib.bittide_tiled_launch.argtypes = (
             [vp] * 5 + [ci] + [vp] * 3 + [cf] + [ci] * 7 + [vp] * 14)
+    else:
+        cll = ctypes.c_longlong
+        lib.bittide_sparse_launch.restype = ci
+        lib.bittide_sparse_launch.argtypes = (
+            [vp, vp, cll, vp, cll] + [vp] * 4 + [ci, vp, cf] + [ci] * 7
+            + [vp] * 15)
     return lib
 
 

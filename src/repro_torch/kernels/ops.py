@@ -24,10 +24,15 @@ All return a :class:`DenseResult` — the ``(freq_ppm, psi)`` pair with
 for ``init=`` chaining), ``.beta`` (per-node net occupancy records in
 frames) and ``.watermarks`` — as host numpy arrays.
 
-Lanes: ``EngineOptions(engine="fused")``, ``"tiled"``, or ``"auto"``
-(the H100 regime table, ``select_engine``: fused up to 256 nodes, tiled
-above), and ``use_ref=True`` for the plain dense oracle.  The sparse and
-per-step lanes raise ``NotImplementedError`` naming their ROADMAP items;
+Lanes: ``EngineOptions(engine="fused")``, ``"tiled"``, ``"sparse"``, or
+``"auto"`` (the H100 regime table, ``select_engine``: fused up to 256
+nodes, tiled above while the dense stack fits the card, sparse beyond for
+a bounded-degree graph), and ``use_ref=True`` for the plain dense oracle.
+The sparse lane (:func:`repro_torch.kernels.bittide_sparse.bittide_sparse`)
+runs on the ELL slot tables of :func:`~repro_torch.kernels.bittide_sparse.
+ellify` — no stack is built — and is the only kernel lane that takes
+per-draw (B, E) ``edge_w`` and fully heterogeneous per-draw latencies.
+The per-step lane raises ``NotImplementedError`` naming its ROADMAP item;
 no lane falls back to another.
 
 The kernels map (draw, node) pairs to threads and mask their ragged
@@ -41,7 +46,7 @@ kernel lanes never build the dense λeff tensor (they fold λeff into
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -53,7 +58,9 @@ from repro_torch.telemetry.api import Telemetry
 from repro_torch.telemetry.watermarks import Watermarks
 
 from .api import EngineOptions, EngineOutputs
-from .bittide_step import TILE_J, bittide_fused, bittide_tiled, select_engine
+from .bittide_sparse import bittide_sparse, ellify, max_in_degree
+from .bittide_step import (TILE_J, bittide_fused, bittide_tiled,
+                           select_engine, sparse_tile)
 from .ref import bittide_dense_multistep_ref
 
 __all__ = ["densify", "latency_classes", "simulate_dense", "simulate_fused",
@@ -64,17 +71,17 @@ __all__ = ["densify", "latency_classes", "simulate_dense", "simulate_fused",
 MAX_EXACT_CLASSES = 8
 
 # Lanes of the reference this port does not have yet, by ROADMAP item.
-_UNPORTED = {"sparse": "ROADMAP queue item 5 (sparse lane)",
-             "per-step": "ROADMAP queue item 9 (per-step lane)"}
+_UNPORTED = {"per-step": "ROADMAP queue item 9 (per-step lane)"}
 
 
 class DenseResult(tuple):
     """``(freq_ppm, psi)`` pair with engine-dispatch metadata attached.
 
-    ``.engine`` names the lane (``"fused"`` | ``"tiled"`` | ``"ref"``),
-    ``.tile_j`` the adjacency panel width in nodes (N on the fused lane,
-    which keeps the whole stack; the tiled kernel's panel width, at most
-    ``TILE_J``, on the tiled lane).  ``.nu`` carries the exact final relative frequencies
+    ``.engine`` names the lane (``"fused"`` | ``"tiled"`` | ``"sparse"`` |
+    ``"ref"``), ``.tile_j`` the adjacency panel width in nodes (N on the
+    fused lane, which keeps the whole stack; the tiled kernel's panel
+    width, at most ``TILE_J``, on the tiled lane; the sparse kernel's
+    nodes per CTA on the sparse lane).  ``.nu`` carries the exact final relative frequencies
     for ``init=`` chaining (``freq_ppm[..., -1, :]`` is ν·1e6 rounded
     through float32 and does not round-trip).  ``.beta`` is the per-node
     net occupancy record in frames, (B, R, N) / (R, N), or None;
@@ -244,6 +251,46 @@ def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a_t, deg,
                   guard_hi=guard_hi, guard_stop=guard_stop)
 
 
+def _auto_is_sparse(topo: Topology, b: int,
+                    class_count: Callable[[], Optional[int]]) -> bool:
+    """Whether ``engine="auto"`` takes the sparse lane for B draws on
+    ``topo``: the regime table (``select_engine``) probed with the degree
+    bound.  ``class_count()`` gives the latency class count the dense
+    lanes would use (None when the latencies form no classes); it is
+    called only when the node count alone does not decide.  The tiled
+    test is monotone in C, so a graph that is sparse at C = 1 is sparse
+    at any C."""
+    n, max_deg = topo.num_nodes, max_in_degree(topo)
+    if select_engine(b, n, 1, max_deg=max_deg)[0] == "sparse":
+        return True
+    c = class_count()
+    return c is not None and \
+        select_engine(b, n, c, max_deg=max_deg)[0] == "sparse"
+
+
+def _sparse_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, nbr, latf, w,
+                   lamsum, dt_frames: float, num_records: int,
+                   record_every: int, record_beta: bool,
+                   record_watermarks: bool, record_guard: bool = False,
+                   guard_lo=None, guard_hi=None,
+                   guard_stop=None) -> EngineOutputs:
+    """One run of the sparse lane (:func:`bittide_sparse`).
+
+    psi, nu, nu_u: (B, N) state; kp, beta_off: (B,) gains; ctrl_mask:
+    (1 | B, N); nbr: (K, N) int32 slot table; latf, w: (1 | B, K, N)
+    slot latencies (frames) and weights — per-draw rows carry per-draw
+    LinkDrop victims and heterogeneous cable draws; lamsum: (B, N).  The
+    guard arguments as for :func:`_fused_engine`.
+    """
+    return bittide_sparse(psi, nu, nu_u, nbr, latf, w, lamsum, kp, beta_off,
+                          dt_frames, num_records=num_records,
+                          record_every=record_every, ctrl_mask=ctrl_mask,
+                          record_beta=record_beta,
+                          record_watermarks=record_watermarks,
+                          record_guard=record_guard, guard_lo=guard_lo,
+                          guard_hi=guard_hi, guard_stop=guard_stop)
+
+
 def _resolve_init(init, b: int, n: int, nu_u: np.ndarray):
     """Seed (psi0, nu0) from ``init`` (a prior result or a (ψ, ν) pair)."""
     if init is None:
@@ -346,6 +393,43 @@ def _host_watermarks(wm_dev, num_records: int) -> Watermarks:
                       num_records=num_records)
 
 
+def _run_sparse(topo: Topology, links: LinkParams, beta0_be, beta0_batched,
+                edge_w_np, ppm_u, kp, beta_off, dt: float, omega_nom: float,
+                num_records: int, record_every: int, init, ctrl_mask,
+                tel: Telemetry, dev) -> DenseResult:
+    """The sparse ELL lane of :func:`simulate_ensemble_dense`.
+
+    No densify and no latency classes: the slot tables carry every edge's
+    own latency (frames), so fully heterogeneous per-draw links and
+    per-draw edge weights are table rows here.
+    """
+    b, n = ppm_u.shape
+    per_draw_w = edge_w_np is not None and edge_w_np.ndim == 2
+    lat_s = np.asarray(links.latency_s, np.float64)
+    nbr, latf, w = ellify(topo, lat_s * omega_nom, edge_w=edge_w_np)
+    rows = b if (beta0_batched or per_draw_w) else 1
+    lamsum = np.broadcast_to(
+        _lamsum_host(topo, beta0_be if beta0_batched else beta0_be[0][None],
+                     edge_w_np, rows), (b, n))
+    nu_u = ppm_u * np.float32(1e-6)
+    psi0, nu0 = _resolve_init(init, b, n, nu_u)
+    put = lambda x: torch.as_tensor(np.array(x, np.float32, order="C"),
+                                    device=dev)
+    out = _sparse_engine(
+        put(psi0), put(nu0), put(nu_u), put(kp), put(beta_off),
+        put(_resolve_mask(ctrl_mask, b, n)), torch.as_tensor(nbr, device=dev),
+        torch.as_tensor(latf, device=dev), torch.as_tensor(w, device=dev),
+        put(lamsum), float(omega_nom * dt), int(num_records),
+        int(record_every), tel.beta, tel.watermarks)
+    host = lambda x: x.transpose(0, 1).contiguous().cpu().numpy()
+    return DenseResult(
+        host(out.freq * 1e6), out.psi.cpu().numpy(), "sparse",
+        sparse_tile(n), nu=out.nu.cpu().numpy(),
+        beta=host(out.beta) if tel.beta else None,
+        watermarks=(_host_watermarks(out.watermarks, num_records)
+                    if tel.watermarks else None))
+
+
 def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
                             steps: int, kp, dt: float = 1e-3,
                             beta_off=0.0, record_every: int = 1,
@@ -375,10 +459,13 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
         mask (0 = clock holdover).
       lat_classes: optional latency-class vector (frames) pinning the class
         axis.
-      edge_w: optional (E,) edge weights (0 = dropped link).  Per-draw
-        (B, E) weights need the sparse lane, which is not ported.
+      edge_w: optional (E,) edge weights (0 = dropped link), or (B, E)
+        per-draw weights (chaos LinkDrop victims) on the sparse lane.
       options: :class:`EngineOptions`; ``engine`` is "auto" (the H100
-        regime table), "fused" or "tiled".
+        regime table, probed with the degree bound), "fused", "tiled" or
+        "sparse" (the ELL lane for bounded-degree networks; also the only
+        kernel lane for per-draw (B, E) ``edge_w`` and fully heterogeneous
+        per-draw latencies).
       telemetry: :class:`Telemetry` — ``beta`` / ``watermarks``.
       device: where to run; None means the CUDA card (raises without one).
 
@@ -411,7 +498,7 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
     if engine in _UNPORTED:
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet: {_UNPORTED[engine]}")
-    if engine not in ("auto", "fused", "tiled"):
+    if engine not in ("auto", "fused", "tiled", "sparse"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
     ppm_u = np.atleast_2d(np.asarray(ppm_u, np.float32))
@@ -427,11 +514,34 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
     beta_off = broadcast_gain(beta_off, b, "beta_off")
     batched, lat_be, beta0_be, beta0_batched = _link_rows(
         links, b, topo.num_edges)
-    if edge_w is not None and np.ndim(edge_w) == 2:
-        raise NotImplementedError(
-            "per-draw (B, E) edge_w needs the sparse lane, which is not "
-            f"ported yet: {_UNPORTED['sparse']}; use "
-            "repro_torch.core.simulate_ensemble (segment-sum)")
+
+    # The sparse lane is decided before any stack is built: at its
+    # 10⁵–10⁶-node scale a (C, N, N) stack must never exist, and per-draw
+    # edge weights exist only as slot tables.
+    edge_w_np = None if edge_w is None else np.asarray(edge_w, np.float64)
+    per_draw_w = edge_w_np is not None and edge_w_np.ndim == 2
+    if per_draw_w and edge_w_np.shape != (b, topo.num_edges):
+        raise ValueError(
+            f"per-draw edge_w must be (B, E) = ({b}, {topo.num_edges}), "
+            f"got {edge_w_np.shape}")
+    sparse = engine == "sparse"
+    if engine == "auto" and not use_ref:
+        # The class count the dense path would compute, at edge-list cost.
+        sparse = _auto_is_sparse(topo, b, lambda: len(latency_classes(
+            lat_be[0] * omega_nom, lat_classes=lat_classes, warn=False)[0]))
+    if per_draw_w and not sparse:
+        raise ValueError(
+            "per-draw (B, E) edge_w needs the sparse or segment-sum "
+            "engine (the dense (C, N, N) adjacency stacks are shared "
+            "across draws)")
+    if sparse:
+        if use_ref:
+            raise ValueError("use_ref does not support the sparse engine "
+                             "(validate against segment-sum instead)")
+        return _run_sparse(topo, links, beta0_be, beta0_batched, edge_w_np,
+                           ppm_u, kp, beta_off, dt, omega_nom, num_records,
+                           record_every, init, ctrl_mask, tel, dev)
+
     if beta0_batched and use_ref:
         raise ValueError("use_ref does not support per-draw beta0 (the "
                          "oracle's lam_eff tensor is shared across draws)")

@@ -29,8 +29,15 @@ Engines:
                   stack placed on the device a single time); ψ and ν stay
                   on the device between chunks, and only the records and
                   the guard's trip records come to the host.
-``sparse`` / ``per-step``
-                  not ported yet (ROADMAP queue items 5 and 9): raise
+``sparse``        the ELL lane (``bittide_sparse``) — the dense lanes'
+                  telemetry and guard on slot tables built ONCE per unique
+                  (latency, weight) set (:func:`_build_sparse_tables`) and
+                  placed on the device once; the only kernel lane for
+                  per-draw LinkDrop / LinkRestore victims and fully
+                  heterogeneous per-draw latencies.  ``auto`` takes it
+                  when the regime table, probed with the degree bound,
+                  puts the network beyond the dense lanes.
+``per-step``      not ported yet (ROADMAP queue item 9): raises
                   ``NotImplementedError``.
 
 λeff semantics (see :mod:`repro_torch.scenarios.events`): a plain
@@ -71,9 +78,12 @@ from repro_torch.core.reframing import (ReframePolicy, edge_occupancy,
                                         node_net_occupancy, shift_assignment)
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.api import EngineOptions
-from repro_torch.kernels.bittide_step import TILE_J, select_engine
-from repro_torch.kernels.ops import (_fused_engine, _host_watermarks,
-                                     _lamsum_host, _resolve_mask,
+from repro_torch.kernels.bittide_sparse import ellify
+from repro_torch.kernels.bittide_step import (TILE_J, select_engine,
+                                              sparse_tile)
+from repro_torch.kernels.ops import (_auto_is_sparse, _fused_engine,
+                                     _host_watermarks, _lamsum_host,
+                                     _resolve_mask, _sparse_engine,
                                      latency_classes)
 from repro_torch.telemetry import Watermarks, coerce_trace, compile_stats
 from repro_torch.telemetry.api import resolve_telemetry
@@ -85,8 +95,7 @@ __all__ = ["AppliedReframe", "ScenarioResult", "run_scenario"]
 
 _DENSE_ENGINES = ("auto", "fused", "tiled")
 # Lanes of the reference this port does not have yet, by ROADMAP item.
-_UNPORTED = {"sparse": "ROADMAP queue item 5 (sparse lane)",
-             "per-step": "ROADMAP queue item 9 (per-step lane)"}
+_UNPORTED = {"per-step": "ROADMAP queue item 9 (per-step lane)"}
 
 
 def _guard_band(b: int, target: float, guard_rows, dev):
@@ -131,7 +140,7 @@ class ScenarioResult:
     recording is off):
 
     * segment-sum engine — per-edge, (T, E) / (B, T, E);
-    * dense kernel lanes with ``record_beta=True`` — in-kernel
+    * dense and sparse kernel lanes with ``record_beta=True`` — in-kernel
       per-node net occupancy Σ_{e→i} w_e·β_e, (T, N) / (B, T, N).
       Dropped links (weight 0) leave the aggregation, so the stream
       covers live links only.
@@ -445,6 +454,69 @@ def _prep_dense_segment(topo: Topology, links_seg: LinkParams, seg,
         engine=chosen, tile_j=min(TILE_J, n) if chosen == "tiled" else n)
 
 
+def _build_sparse_tables(topo: Topology, comp, cfg: SimConfig, dev):
+    """Every segment's ELL slot tables, built once per scenario run.
+
+    Returns ``(nbr, latf, w)``: the (K, N) int32 neighbour table, shared by
+    every segment, and per segment ``latf[si]`` / ``w[si]``, its (R, K, N)
+    slot latency (frames) and weight tables (R = 1 shared, B per-draw) on
+    the device.  One :func:`ellify` and one device placement per unique
+    (latency, weight) parameter set, so swap-back segments reuse one
+    buffer.  Dropped links keep their slot at weight 0, so every shape is
+    constant across the scenario."""
+    nbr = None
+    by_key, latf_list, w_list = {}, [], []
+    for seg in comp.segments:
+        lat_f = np.asarray(seg.latency_s, np.float64) * cfg.omega_nom
+        w_np = np.asarray(seg.edge_w, np.float64)
+        key = (lat_f.shape, lat_f.tobytes(), w_np.shape, w_np.tobytes())
+        if key not in by_key:
+            nbr_h, latf_h, w_h = ellify(topo, lat_f, edge_w=w_np)
+            if nbr is None:
+                nbr = torch.as_tensor(nbr_h, device=dev)
+            by_key[key] = (torch.as_tensor(latf_h, device=dev),
+                           torch.as_tensor(w_h, device=dev))
+        latf_list.append(by_key[key][0])
+        w_list.append(by_key[key][1])
+    return nbr, latf_list, w_list
+
+
+def _prep_sparse_segment(topo: Topology, links_seg: LinkParams, seg,
+                         ctrl: ControllerConfig, ppm2d: np.ndarray,
+                         tables, seg_index: int, dev) -> dict:
+    """Host-side prep for one sparse segment (once per segment).
+
+    Mirrors :func:`_prep_dense_segment`: picks up the precomputed slot
+    tables and folds λeff into the (B, N) ``lamsum`` rows — per draw when
+    re-establishment, a rotation or per-draw edge weights made the fold
+    per-draw — and puts the mask, ν_u and gains on the device.
+    """
+    b, n = ppm2d.shape
+    beta0 = np.asarray(links_seg.beta0, np.float64)
+    w_np = np.asarray(seg.edge_w, np.float64)
+    rows = b if (beta0.ndim == 2 or w_np.ndim == 2) else 1
+    lamsum = np.broadcast_to(
+        _lamsum_host(topo, beta0 if beta0.ndim == 2 else beta0[None], w_np,
+                     rows), (b, n))
+    put = lambda x: torch.as_tensor(np.array(x, np.float32, order="C"),
+                                    device=dev)
+    return dict(
+        latf=tables[1][seg_index], w=tables[2][seg_index],
+        lamsum=put(lamsum), mask=put(_resolve_mask(seg.ctrl_mask, b, n)),
+        nu_u=put(ppm2d * np.float32(1e-6)),
+        kp=put(broadcast_gain(ctrl.kp, b)),
+        beta_off=put(broadcast_gain(ctrl.beta_off, b, "beta_off")),
+        engine="sparse", tile_j=sparse_tile(n))
+
+
+def _class_count(comp) -> Optional[int]:
+    """The latency class count of the scenario's dense stacks, or None
+    when its latencies form no classes."""
+    if comp.per_draw_classes is not None:
+        return int(comp.per_draw_classes.shape[1])
+    return None if comp.lat_classes is None else len(comp.lat_classes)
+
+
 def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                  ppm_u: np.ndarray, scenario: Scenario,
                  cfg: SimConfig = SimConfig(),
@@ -464,19 +536,19 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
       scenario: the event list (compiled here unless ``compiled`` given).
       compiled: reuse a previous :func:`compile_scenario` result.
       options: :class:`repro_torch.kernels.EngineOptions` — ``engine``
-        ("segment-sum" by default here, or a dense lane: "auto" |
-        "fused" | "tiled"; "sparse" and "per-step" raise
-        ``NotImplementedError``) and ``chunk_records`` (records per
+        ("segment-sum" by default here, a dense lane: "auto" | "fused" |
+        "tiled", or "sparse"; "per-step" raises ``NotImplementedError``)
+        and ``chunk_records`` (records per
         engine call; must divide every segment's record count; default
         the compiler's GCD).
       telemetry: :class:`repro_torch.telemetry.Telemetry` — ``beta``
         (per-edge (T, E) on segment-sum, in-kernel per-node (T, N) on the
-        dense lanes), ``watermarks`` (chunk-merged into
+        kernel lanes), ``watermarks`` (chunk-merged into
         ``ScenarioResult.watermarks``), ``trace`` (the flight recorder)
         and ``guard`` (closed-loop re-centering: ``True`` or a
         :class:`repro_torch.core.reframing.ReframePolicy`).  Without
         ``telemetry`` segment-sum follows ``cfg.record_beta`` and the
-        dense lanes record ν only.
+        kernel lanes record ν only.
       device: where to run; None means the CUDA card (raises without one).
 
     Returns:
@@ -497,12 +569,17 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
         raise NotImplementedError(
             f"engine={engine!r} is not ported yet: {_UNPORTED[engine]}")
     dense = engine in _DENSE_ENGINES
-    if not dense and engine != "segment-sum":
+    sparse = engine == "sparse"
+    if not dense and not sparse and engine != "segment-sum":
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
     ppm_u = np.asarray(ppm_u, np.float32)
     single = ppm_u.ndim == 1
     comp = compiled or compile_scenario(scenario, topo, links, cfg)
+    if engine == "auto" and _auto_is_sparse(
+            topo, 1 if single else ppm_u.shape[0],
+            lambda: _class_count(comp)):
+        dense, sparse = False, True
     chunk = opts.chunk_records or comp.chunk_records
     for s in comp.segments:
         if chunk < 1 or s.records % chunk:
@@ -525,12 +602,14 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                     "\n  note: " + nt for nt in comp.notes))
         if any(np.asarray(s.edge_w).ndim == 2 for s in comp.segments):
             raise ValueError(
-                "per-draw LinkDrop/LinkRestore victims need the segment-sum "
-                "engine (the dense (C, N, N) stacks are shared across "
-                f"draws; the sparse lane is {_UNPORTED['sparse']})")
+                "per-draw LinkDrop/LinkRestore victims need the "
+                "segment-sum or sparse engine (the dense (C, N, N) "
+                "adjacency stacks are shared across draws)")
+    if dense or sparse:
+        kind = "dense" if dense else "sparse"
         if ctrl.kind != "proportional":
             raise ValueError(
-                f"dense engines implement the proportional controller; "
+                f"{kind} engines implement the proportional controller; "
                 f"{ctrl.kind!r} runs on the segment-sum engine")
         if cfg.quantize_beta or cfg.telemetry_noise_ppm:
             raise ValueError(
@@ -583,9 +662,11 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
     gband = None               # kernel-lane guard band (lo, hi), (B,) each
     rec_done, total = 0, comp.total_records
     eng_label, tile_j = engine, 0
-    # All segments' dense stacks, built once (the chunk loop never
-    # re-densifies or re-transfers A).
+    # All segments' dense stacks or slot tables, built once (the chunk
+    # loop never re-densifies, re-scatters or re-transfers them).
     stacks = _build_dense_stacks(topo, comp, cfg, dev) if dense else None
+    tables = _build_sparse_tables(topo, comp, cfg, dev) if sparse else None
+    kernel_lane = dense or sparse
     host = lambda x: x.cpu().numpy()
 
     def live_state():
@@ -595,7 +676,7 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
         if state is None and psi_d is None:
             return (np.zeros_like(ppm_u, np.float64),
                     ppm_u.astype(np.float64) * 1e-6)
-        if dense:
+        if kernel_lane:
             psi_now, nu_now = host(psi_d), host(nu_d)
             return (psi_now[0], nu_now[0]) if single else (psi_now, nu_now)
         return state.psi, state.nu
@@ -650,19 +731,35 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                 est = np.abs(pot[..., src_np] - pot[..., dst_np])
                 return np.atleast_2d(est.max(axis=-1))
 
-        if dense:
+        if kernel_lane:
             # Segment prep happens ONCE per segment; the chunk loop below
             # replays the engine on device-resident state.
-            prep = _prep_dense_segment(topo, links_seg, seg, ctrl,
-                                       np.atleast_2d(ppm_seg), engine,
-                                       stacks, si, dev)
+            def prep_segment(links_seg):
+                if sparse:
+                    return _prep_sparse_segment(
+                        topo, links_seg, seg, ctrl, np.atleast_2d(ppm_seg),
+                        tables, si, dev)
+                return _prep_dense_segment(
+                    topo, links_seg, seg, ctrl, np.atleast_2d(ppm_seg),
+                    engine, stacks, si, dev)
+
+            prep = prep_segment(links_seg)
             chosen = eng_label = prep["engine"]
             tile_j = prep["tile_j"]
-            c_stack = int(prep["a_t"].shape[0])
-            tr.event("engine_dispatch", segment=si, engine=chosen,
-                     tile_j=int(tile_j), b=int(b), n=int(topo.num_nodes),
-                     c=c_stack,
-                     stack_bytes=int(4 * c_stack * topo.num_nodes ** 2))
+            if sparse:
+                k = int(tables[0].shape[0])
+                tr.event("engine_dispatch", segment=si, engine="sparse",
+                         tile_j=int(tile_j), b=int(b),
+                         n=int(topo.num_nodes), k=k,
+                         table_bytes=int(4 * k * topo.num_nodes * (
+                             1 + prep["latf"].shape[0]
+                             + prep["w"].shape[0])))
+            else:
+                c_stack = int(prep["a_t"].shape[0])
+                tr.event("engine_dispatch", segment=si, engine=chosen,
+                         tile_j=int(tile_j), b=int(b),
+                         n=int(topo.num_nodes), c=c_stack,
+                         stack_bytes=int(4 * c_stack * topo.num_nodes ** 2))
             if psi_d is None:
                 psi_d, nu_d = torch.zeros_like(prep["nu_u"]), prep["nu_u"]
             dt_frames = float(cfg.omega_nom * cfg.dt)
@@ -673,17 +770,26 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                 # Stop cap: a post-splice partial chunk keeps num_records
                 # and runs only up to the cap.
                 stop = min(chunk, seg.records - seg_done) - 1
+                guard_kw = dict(record_guard=guard_on,
+                                guard_lo=gband[0] if guard_on else None,
+                                guard_hi=gband[1] if guard_on else None,
+                                guard_stop=stop if guard_on else None)
                 with tr.span("chunk", engine=chosen, segment=si,
                              launch=launches, records=int(stop + 1)):
-                    out = _fused_engine(
-                        psi_d, nu_d, prep["nu_u"], prep["kp"],
-                        prep["beta_off"], prep["mask"], prep["a_t"],
-                        prep["deg"], prep["lamsum"], prep["lat"], dt_frames,
-                        int(chunk), int(cfg.record_every), chosen, rb_dense,
-                        rw, record_guard=guard_on,
-                        guard_lo=gband[0] if guard_on else None,
-                        guard_hi=gband[1] if guard_on else None,
-                        guard_stop=stop if guard_on else None)
+                    if sparse:
+                        out = _sparse_engine(
+                            psi_d, nu_d, prep["nu_u"], prep["kp"],
+                            prep["beta_off"], prep["mask"], tables[0],
+                            prep["latf"], prep["w"], prep["lamsum"],
+                            dt_frames, int(chunk), int(cfg.record_every),
+                            rb_dense, rw, **guard_kw)
+                    else:
+                        out = _fused_engine(
+                            psi_d, nu_d, prep["nu_u"], prep["kp"],
+                            prep["beta_off"], prep["mask"], prep["a_t"],
+                            prep["deg"], prep["lamsum"], prep["lat"],
+                            dt_frames, int(chunk), int(cfg.record_every),
+                            chosen, rb_dense, rw, **guard_kw)
                     psi_d, nu_d = out.psi, out.nu
                     trips = host(out.guard_state)[:, 0] if guard_on else None
                     tstar = int(trips.min()) if guard_on else chunk
@@ -725,12 +831,9 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                     # segment's final record the next segment's prep picks
                     # the shifted λeff up.
                     if seg_done < seg.records:
-                        links_seg = LinkParams(
+                        prep = prep_segment(LinkParams(
                             latency_s=seg.latency_s,
-                            beta0=np.array(lam_eff, copy=True))
-                        prep = _prep_dense_segment(
-                            topo, links_seg, seg, ctrl,
-                            np.atleast_2d(ppm_seg), engine, stacks, si, dev)
+                            beta0=np.array(lam_eff, copy=True)))
             continue
 
         tr.event("engine_dispatch", segment=si, engine="segment-sum",
@@ -793,9 +896,9 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                     links_seg = LinkParams(latency_s=seg.latency_s,
                                            beta0=np.array(lam_eff, copy=True))
 
-    axis = 1 if (dense or not single) else 0
+    axis = 1 if (kernel_lane or not single) else 0
     freq = np.concatenate(freq_chunks, axis=axis)
-    if dense:
+    if kernel_lane:
         if single:
             freq = freq[0]
         psi_f, nu_f = host(psi_d), host(nu_d)
@@ -814,7 +917,7 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
         psi_f, nu_f, c_state = state.psi, state.nu, state.c_state
 
     wm_res = wm_acc
-    if wm_res is not None and single and dense:
+    if wm_res is not None and single and kernel_lane:
         wm_res = wm_res[0]
     if tr:
         cs1 = compile_stats()

@@ -6,15 +6,17 @@ it does build and launch instead:
 
 * :func:`compile_stats` — ``"builds"``: kernel libraries compiled by
   ``nvcc`` in this process; ``"loaded"``: libraries loaded;
-  ``"fused"`` / ``"tiled"``: kernel variants the wrappers have selected,
+  ``"fused"`` / ``"tiled"`` / ``"sparse"``: kernel variants the wrappers
+  have selected,
   keyed by (record_beta, record_watermarks, record_guard) — on a CPU
   tensor a wrapper selects the same key before it runs the plain version.
-* :func:`launch_counts` — ``"fused"`` / ``"tiled"``: calls of each kernel
-  wrapper that launched on the card; ``"segment-sum"``: runs of the
-  segment-sum period loop.
+* :func:`launch_counts` — ``"fused"`` / ``"tiled"`` / ``"sparse"``: calls
+  of each kernel wrapper that launched on the card; ``"segment-sum"``:
+  runs of the segment-sum period loop.
 
 :class:`no_new_compiles` keeps the reference's meaning: a gain, latency,
-mask or ``lamsum`` sweep builds and selects nothing new.
+mask, ``lamsum`` or ELL-table sweep (a chaos campaign's per-draw victims
+and magnitudes included) builds and selects nothing new.
 
 Engine modules are imported inside the functions, so this module stays
 importable before the kernel stack.
@@ -31,14 +33,18 @@ def compile_stats() -> dict:
     return {"builds": build.BUILD_COUNT["nvcc"],
             "loaded": build.BUILD_COUNT["loaded"],
             "fused": sum(1 for v in used if v[0] == "fused"),
-            "tiled": sum(1 for v in used if v[0] == "tiled")}
+            "tiled": sum(1 for v in used if v[0] == "tiled"),
+            "sparse": sum(1 for v in used if v[0] == "sparse")}
 
 
 def launch_counts() -> dict:
-    """Kernel launches (fused, tiled) and period-loop runs (segment-sum)."""
+    """Kernel launches (fused, tiled, sparse) and period-loop runs
+    (segment-sum)."""
     from repro_torch.core.frame_model import RUN_COUNT
+    from repro_torch.kernels.bittide_sparse import bittide_sparse
     from repro_torch.kernels.bittide_step import bittide_fused, bittide_tiled
     return {"fused": bittide_fused.launches, "tiled": bittide_tiled.launches,
+            "sparse": bittide_sparse.launches,
             "segment-sum": RUN_COUNT["segment-sum"]}
 
 

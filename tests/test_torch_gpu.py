@@ -20,7 +20,13 @@ records and that never trip; the fused guard runs ``FUSED_GUARD_CASES``
 (FC8, and torus3d(8) with two classes: 512 threads per CTA, A from L2),
 whose draws trip at different records so that the wrapper replays the
 chunk.  Guard runs are compared over the records up to the earliest trip,
-with trip records exactly equal.
+with trip records exactly equal.  The sparse kernel runs
+``SPARSE_PARITY_CASES`` (FC8, random_regular(300, 3, 0) at B=9, the
+ragged bounded_degree_topo(96, 4, 3), the same with K + 2 padded slots,
+per-draw tables with dropped links) in every variant and with the guard,
+at 0.0 error; a draw's bits do not depend on the batch (alone and in a
+batch of 1,024) nor on whether its tables are shared or per-draw; the
+guard freezes the whole batch at the earliest trip.
 """
 import importlib.util
 from pathlib import Path
@@ -32,6 +38,8 @@ torch = pytest.importorskip("torch")
 
 import repro_torch.core as tc  # noqa: E402
 import repro_torch.kernels as tk  # noqa: E402
+from repro_torch.kernels.bittide_sparse import (  # noqa: E402
+    bittide_sparse, bittide_sparse_torch)
 from repro_torch.kernels.bittide_step import (bittide_fused,  # noqa: E402
                                               bittide_fused_torch,
                                               bittide_tiled, launch_plan)
@@ -240,3 +248,125 @@ def test_run_scenario_on_the_card(cuda):
     shift = int((fus.rtt(1) - fus.rtt(0))[swap[0]])
     assert abs(shift - 1231) <= 3
     assert shift == int((seg.rtt(1) - seg.rtt(0))[swap[0]])
+
+
+# Per-draw arguments of the sparse kernel: psi, nu, nu_u, lamsum, kp,
+# beta_off (the tables are shared in these cases).
+_SPARSE_PER_DRAW = (0, 1, 2, 6, 7, 8)
+_SPARSE_KW = dict(num_records=chip_smoke.SPARSE_RECORDS,
+                  record_every=chip_smoke.SPARSE_EVERY)
+
+
+@pytest.mark.parametrize("variant", range(6),
+                         ids=["nu", "beta", "wm", "beta+wm", "guard_trips",
+                              "guard_quiet"])
+@pytest.mark.parametrize("case", chip_smoke.SPARSE_PARITY_CASES,
+                         ids=["fc8", "random_regular_300",
+                              "bounded_degree_96", "bounded_degree_96_k+2",
+                              "per_draw_dropped"])
+def test_sparse_kernel_matches_plain_version(cuda, case, variant):
+    _, args, mask = chip_smoke.sparse_parity_inputs(case, cuda)
+    b = args[0].shape[0]
+    kw = dict(_SPARSE_KW, ctrl_mask=mask)
+    v = chip_smoke.sparse_variants(args, kw, b)[variant]
+    before = bittide_sparse.launches
+    got = bittide_sparse(*args, **kw, **v)
+    torch.cuda.synchronize()
+    assert bittide_sparse.launches == before + 1
+    want = bittide_sparse_torch(*args, **kw, **v)
+    records = chip_smoke.SPARSE_RECORDS
+    if v.get("record_guard"):
+        assert torch.equal(got.guard_state, want.guard_state)
+        tstar = int(want.guard_state.min())
+        assert (tstar < records - 1) == (variant == 4)
+        records = min(tstar, records - 1) + 1
+    chip_smoke.kernel_vs_plain(got, want, records=records, exact=True)
+
+
+def test_sparse_draw_bits_independent_of_batch(cuda):
+    """Draws run alone equal their rows of a batch of 1,024, bit for bit,
+    every variant on."""
+    _, args, mask = chip_smoke.sparse_parity_inputs(
+        ("random_regular_300", 1024, "shared"), cuda)
+    kw = dict(_SPARSE_KW, record_beta=True, record_watermarks=True)
+    full = bittide_sparse(*args, ctrl_mask=mask, **kw)
+    for d in (0, 511, 1023):
+        sub = [x[d:d + 1].contiguous() if k in _SPARSE_PER_DRAW else x
+               for k, x in enumerate(args)]
+        one = bittide_sparse(*sub, ctrl_mask=mask[d:d + 1].contiguous(),
+                             **kw)
+        assert torch.equal(full.freq[:, d:d + 1], one.freq)
+        assert torch.equal(full.beta[:, d:d + 1], one.beta)
+        assert torch.equal(full.psi[d:d + 1], one.psi)
+        for got, want in zip(full.watermarks, one.watermarks):
+            assert torch.equal(got[d:d + 1], want)
+
+
+def test_sparse_shared_and_per_draw_tables_equal(cuda):
+    """Shared (1, K, N) tables and the same tables repeated per draw (row
+    stride K·N instead of 0) give equal rows, bit for bit."""
+    _, args, mask = chip_smoke.sparse_parity_inputs(
+        ("bounded_degree_96", 16, "shared"), cuda)
+    b = args[0].shape[0]
+    rep = list(args)
+    rep[4] = args[4].expand(b, -1, -1).contiguous()
+    rep[5] = args[5].expand(b, -1, -1).contiguous()
+    kw = dict(_SPARSE_KW, ctrl_mask=mask, record_beta=True,
+              record_watermarks=True)
+    a = bittide_sparse(*args, **kw)
+    c = bittide_sparse(*rep, **kw)
+    assert torch.equal(a.freq, c.freq) and torch.equal(a.beta, c.beta)
+    assert torch.equal(a.psi, c.psi) and torch.equal(a.nu, c.nu)
+
+
+def test_sparse_guard_freezes_the_batch_at_the_earliest_trip(cuda):
+    """Draws whose bands trip at different records: every draw stops at the
+    batch's earliest trip t* — records after t* are NaN and the final state
+    is the state at t*, the plain version's, bit for bit."""
+    _, args, mask = chip_smoke.sparse_parity_inputs(
+        ("random_regular_300", 9, "shared"), cuda)
+    kw = dict(_SPARSE_KW, ctrl_mask=mask)
+    v = chip_smoke.sparse_variants(args, kw, args[0].shape[0])[4]
+    got = bittide_sparse(*args, **kw, **v)
+    want = bittide_sparse_torch(*args, **kw, **v)
+    trips = got.guard_state[:, 0]
+    tstar = int(trips.min())
+    assert torch.equal(trips, want.guard_state[:, 0])
+    assert 0 < tstar < chip_smoke.SPARSE_RECORDS - 1
+    assert bool((trips > tstar).any())
+    assert torch.isnan(got.freq[tstar + 1:]).all()
+    assert torch.equal(got.psi, want.psi) and torch.equal(got.nu, want.nu)
+    stop = bittide_sparse_torch(*args, **dict(kw, num_records=tstar + 1))
+    assert torch.equal(got.freq[:tstar + 1], stop.freq)
+
+
+def test_sparse_lane_runs_on_the_card(cuda):
+    """simulate_ensemble_dense and run_scenario with engine="sparse" and the
+    device default launch the sparse kernel; a LinkDrop campaign's per-draw
+    weights run on it within LINKDROP_ATOL_PPM of the segment-sum lane."""
+    from repro_torch.scenarios import (ChaosCampaign, FreqStepSampler,
+                                       LinkDropSampler)
+    topo = tc.torus3d(4)
+    ppm = np.random.default_rng(0).uniform(-8, 8, (16, topo.num_nodes))
+    before = bittide_sparse.launches
+    res = tk.simulate_ensemble_dense(
+        topo, tc.make_links(topo), ppm, 400, 2e-8, dt=1e-3,
+        record_every=20, options=tk.EngineOptions(engine="sparse"),
+        telemetry=Telemetry(beta=True, watermarks=True))
+    assert bittide_sparse.launches == before + 1
+    assert res.engine == "sparse" and np.isfinite(res[0]).all()
+    camp = ChaosCampaign(
+        topo=topo, ctrl=tc.ControllerConfig(kp=2e-8),
+        samplers=(FreqStepSampler(t=0.06, ppm_range=(1.0, 4.0)),
+                  LinkDropSampler(t=0.1, t_restore=0.16)),
+        num_draws=16, seed=5, ppm_range=8.0,
+        cfg=tc.SimConfig(dt=1e-3, steps=240, record_every=12),
+        engine="sparse")
+    result = camp.run()
+    assert bittide_sparse.launches > before + 1
+    seg = run_scenario(topo, camp.links, camp.ctrl, result.ppm_u,
+                       result.scenario, camp.cfg,
+                       options=tk.EngineOptions(engine="segment-sum"),
+                       telemetry=Telemetry(beta=True))
+    np.testing.assert_allclose(result.result.freq_ppm, seg.freq_ppm, rtol=0,
+                               atol=chip_smoke.LINKDROP_ATOL_PPM)

@@ -379,7 +379,7 @@ def test_gain_lamsum_and_mask_sweeps_build_nothing_new():
     assert compile_stats()["builds"] == 0
 
 
-@pytest.mark.parametrize("engine", ["sparse", "per-step"])
+@pytest.mark.parametrize("engine", ["per-step"])
 def test_unported_lanes_raise(engine):
     topo = tc.fully_connected(8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -391,8 +391,9 @@ def test_unported_lanes_raise(engine):
 
 def test_auto_outside_fused_regime_and_per_draw_edge_w_raise():
     """Above the fused regime "auto" takes the tiled lane (it raised until
-    the tiled kernel was ported); per-draw edge weights and the
-    interpreter switch still raise."""
+    the tiled kernel was ported); per-draw edge weights on a dense lane
+    raise the reference's redirect to the sparse or segment-sum engine,
+    and the interpreter switch raises."""
     topo = tc.random_regular(300, 3, 0)
     res = tk.simulate_ensemble_dense(topo, tc.make_links(topo),
                                      np.zeros((1, 300)), 10, 2e-9,
@@ -400,7 +401,7 @@ def test_auto_outside_fused_regime_and_per_draw_edge_w_raise():
     assert res.engine == "tiled" and res.tile_j == tk.TILE_J
     assert tk.select_engine(1, 2**17 + 1, 1)[0] == "per-step"
     small = tc.fully_connected(4)
-    with pytest.raises(NotImplementedError, match="sparse"):
+    with pytest.raises(ValueError, match="sparse or segment-sum"):
         tk.simulate_ensemble_dense(small, tc.make_links(small),
                                    np.zeros((2, 4)), 10, 2e-9,
                                    record_every=10, device="cpu",

@@ -34,10 +34,11 @@ def test_imports_with_jax_and_repro_blocked():
         "    sys.modules[name] = None\n"
         "import repro_torch, repro_torch.convert, repro_torch.core, "
         "repro_torch.kernels, repro_torch.telemetry, repro_torch.scenarios\n"
-        "from repro_torch.kernels import build, ops, ref, bittide_step\n"
+        "from repro_torch.kernels import build, ops, ref, bittide_step, "
+        "bittide_sparse\n"
         "from repro_torch.telemetry import compile_stats, watermarks, trace\n"
         "from repro_torch.core import envelopes, reframing\n"
-        "from repro_torch.scenarios import events, compiler, runner\n"
+        "from repro_torch.scenarios import events, compiler, runner, chaos\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -62,6 +63,17 @@ def test_card_side_bars_equal_the_harness_bars():
     for name in ("FREQ_ATOL_PPM", "BETA_ATOL_FRAMES"):
         value = re.search(rf"^{name} = (\S+)$", text, re.M).group(1)
         assert float(value) == getattr(engine_harness, name), name
+
+
+def test_card_side_linkdrop_bar_equals_the_reference_test():
+    """chip_smoke.py's LinkDrop-campaign bar is tests/test_chaos.py's."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    value = re.search(r"^LINKDROP_ATOL_PPM = (\S+)$", text, re.M).group(1)
+    ref = (ROOT / "tests" / "test_chaos.py").read_text()
+    body = ref[ref.index("def test_linkdrop_campaign_runs_on_sparse"):]
+    body = body[:body.index("\ndef ")]
+    assert float(value) == float(re.search(r"atol=([0-9.e-]+)\)",
+                                           body).group(1))
 
 
 def test_card_tests_take_the_card_side_bars():
@@ -101,6 +113,18 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
                                 np.zeros(4), ts.Scenario(events=()),
                                 tc.SimConfig(steps=10, record_every=10),
                                 options=tk.EngineOptions(engine="fused")),
+        lambda: tk.simulate_ensemble_dense(
+            topo, links, np.zeros((1, 4)), 10, 2e-9, record_every=10,
+            options=tk.EngineOptions(engine="sparse")),
+        lambda: ts.run_scenario(topo, links, tc.ControllerConfig(),
+                                np.zeros(4), ts.Scenario(events=()),
+                                tc.SimConfig(steps=10, record_every=10),
+                                options=tk.EngineOptions(engine="sparse")),
+        lambda: ts.ChaosCampaign(
+            topo=topo, ctrl=tc.ControllerConfig(),
+            samplers=(ts.FreqStepSampler(t=0.005),), num_draws=2,
+            cfg=tc.SimConfig(steps=10, record_every=10),
+            engine="sparse").run(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -143,4 +167,23 @@ def test_cuda_tensor_never_takes_the_plain_version_any_kernel(monkeypatch,
                 torch.zeros(1, 1, device="meta"), g, g, 1.0, num_records=1,
                 record_every=1, record_guard=True, guard_lo=g, guard_hi=g,
                 guard_stop=0)
+    assert not called
+
+
+def test_sparse_wrapper_never_takes_the_plain_version(monkeypatch):
+    """The sparse wrapper, guard variant included: a tensor on a device
+    other than the CPU never reaches the plain version."""
+    from repro_torch.kernels import bittide_sparse as sp
+    called = []
+    monkeypatch.setattr(sp, "bittide_sparse_torch",
+                        lambda *a, **k: called.append(1))
+    x = torch.zeros(1, 2, device="meta")
+    g = torch.zeros(1, device="meta")
+    tbl = torch.zeros(1, 1, 2, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        sp.bittide_sparse(x, x, x, torch.zeros(1, 2, dtype=torch.int32,
+                                               device="meta"), tbl, tbl, x,
+                          g, g, 1.0, num_records=1, record_every=1,
+                          record_guard=True, guard_lo=g, guard_hi=g,
+                          guard_stop=0)
     assert not called

@@ -267,7 +267,7 @@ def test_cable_swap_rtt_shift_equals_reference(engine):
 
 # ----------------------------------------------- options, counts, tracing
 
-@pytest.mark.parametrize("engine", ["sparse", "per-step"])
+@pytest.mark.parametrize("engine", ["per-step"])
 def test_unported_engines_raise(engine):
     with pytest.raises(NotImplementedError, match="ROADMAP queue item"):
         _port(TOPO, LINKS, rc.ControllerConfig(kp=2e-8), PPM, _swap(),
