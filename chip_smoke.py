@@ -6,10 +6,10 @@
 Phases, one JSON object per line:
 
 1. build    — nvcc builds ``csrc/bittide_fused.cu``,
-              ``csrc/bittide_tiled.cu`` and ``csrc/bittide_sparse.cu`` in
-              parallel; their ptxas reports (registers, shared memory,
-              spills) and the card's ``nvidia-smi`` name and power limit
-              are printed.
+              ``csrc/bittide_tiled.cu``, ``csrc/bittide_sparse.cu`` and
+              ``csrc/bittide_step.cu`` in parallel; their ptxas reports
+              (registers, shared memory, spills) and the card's
+              ``nvidia-smi`` name and power limit are printed.
 2. parity   — each kernel against its plain PyTorch version on the card.
               Fused (``PARITY_CASES``): FC8 at B=64 and at 4·SMs·3 + 5
               draws (three draws per CTA, a partial last CTA), torus3d(6)
@@ -32,6 +32,11 @@ Phases, one JSON object per line:
               leaves, the same with K + 2 padded slots, and per-draw
               tables with a dropped link per draw; every variant and the
               guard tripping at different records and never; 0.0 error.
+              Per-step (``PERSTEP_PARITY_CASES``): FC8, FC8 with the
+              1000 m spool (two classes) and the ragged torus3d(7) with a
+              holdover mask, one draw each; every variant and the guard
+              tripping at a mid record and never; 0.0 error, and the
+              launches the C loop made.
 3. fc8      — the main path at users' size: ``simulate_ensemble_dense`` on
               fully_connected(8), B=4096 draws in ±8 ppm, kp=2e-8,
               dt=5e-5, 10,000 steps recorded every 20, β + watermarks;
@@ -98,6 +103,25 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               flight recorder into the engine calls, triage and the rest.
               Every engine call is held against the plain version on its
               own inputs at 0.0 error.
+
+10. perstep — the per-step lane (``bittide_perstep``, one draw and one
+              launch per period).  (a) ``simulate_ensemble_dense(engine=
+              "per-step")`` on phase 6's torus3d(22) (A = 453.5 MB), its
+              draws 0 and 1, 2,000 periods recorded every 100,
+              watermarks: launches (2 × (2,000 + 2 × 20)), the kernel's
+              time per pass beside the bytes bound, memory, one
+              ``torch.mv`` per class as the yardstick of one period's
+              aggregation, the plain version over 2 records × 2 periods at
+              0.0 error, ν and watermarks against phase 6's tiled rows.
+              (b) ``BittideNetwork.run_scenario`` on phase 7's cable swap
+              (40,000 periods, its first 16 draws): ν and β against phase
+              7's fused rows, the same RTT shift; every engine call held
+              against the plain version over its first 10 records.  (c)
+              Phase 7's guarded torus with three draws whose drift rates
+              differ, so that the host resync re-runs draws: splices
+              identical to the fused lane's.  (d) examples/quickstart.py's
+              flow: ``BittideNetwork.sync`` converges; the RTT table and
+              the logical latency 0 → 1.
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -211,6 +235,12 @@ SPARSE_PARITY_CASES = (("fully_connected_8", 64, "shared"),
                        ("bounded_degree_96", 16, "extra_slots"),
                        ("random_regular_300", 9, "per_draw_dropped"))
 SPARSE_RECORDS, SPARSE_EVERY = 6, 5
+# Per-step kernel-vs-plain cases of phase 2 and of the card tests: FC8;
+# FC8 with the 1000 m spool on the pair (0, 1) (two latency classes); the
+# ragged torus3d(7) (343 nodes: the last CTA partial) with nodes 0 and
+# N-1 in holdover.  One draw each, with phase 2's per-draw knobs.
+PERSTEP_PARITY_CASES = ("fc8", "fc8_spool", "torus3d_7")
+PERSTEP_RECORDS, PERSTEP_EVERY = 6, 4
 
 
 def bounded_degree_topo(n, max_deg, seed=0, isolated=0, leaves=0):
@@ -468,7 +498,8 @@ def phase_parity(dev):
                                                   launch_plan,
                                                   tiled_launch_plan)
     worst = {k: dict(freq_ppm=0.0, beta_frames=0.0)
-             for k in ("bittide_fused", "bittide_tiled", "bittide_sparse")}
+             for k in ("bittide_fused", "bittide_tiled", "bittide_sparse",
+                       "bittide_step")}
 
     def note(kernel, row):
         emit(row)
@@ -572,6 +603,7 @@ def phase_parity(dev):
         assert trip_rows[0] < TILED_RECORDS - 1 and \
             trip_rows[1] == TILED_RECORDS, trip_rows
     sparse_parity(dev, note)
+    perstep_parity(dev, note)
     return worst
 
 
@@ -615,6 +647,81 @@ def sparse_parity(dev, note):
             note("bittide_sparse", row)
         assert trip_rows[0] < SPARSE_RECORDS - 1 and \
             trip_rows[1] == SPARSE_RECORDS, trip_rows
+
+
+def perstep_inputs(case, dev):
+    """(topology, per-step kernel args ending in Δ = 125,000 frames,
+    (N,) mask) of one of ``PERSTEP_PARITY_CASES``: draw 0 of
+    ``parity_inputs``'s per-draw knobs (kp, class latencies, λeff fold,
+    setpoint), ψ started in ±5 frames."""
+    import numpy as np
+    import torch
+    name, classes = {"fc8": ("fully_connected_8", 1),
+                     "fc8_spool": ("fully_connected_8", 2),
+                     "torus3d_7": ("torus3d_7", 1)}[case]
+    topo, args, _ = parity_inputs((name, 1, classes), dev)
+    n = topo.num_nodes
+    psi = torch.as_tensor(np.random.default_rng(3).uniform(-5, 5, n),
+                          dtype=torch.float32, device=dev)
+    mask = torch.ones(n, device=dev)
+    if case == "torus3d_7":
+        mask[[0, n - 1]] = 0.0
+    row = lambda x: x[0].contiguous()
+    return topo, (psi, row(args[1]), row(args[2]), args[3], args[4],
+                  row(args[5]), row(args[6]), float(args[7][0]),
+                  float(args[8][0]), args[9]), mask
+
+
+def perstep_variants(args, kw):
+    """The four variants, then the guard with a band that trips near
+    record 2 and with one that never trips."""
+    from repro_torch.kernels.bittide_step import bittide_perstep_torch
+    base = bittide_perstep_torch(*args, **dict(kw, record_beta=True))
+    peak = (base.beta.abs() / args[4].clamp(min=1.0)).amax(dim=1)  # (R,)
+    out = [dict(record_beta=beta, record_watermarks=wm)
+           for beta, wm in ((False, False), (True, False), (False, True),
+                            (True, True))]
+    for band in (float(peak[2]) * 0.999, 10 * float(peak.max())):
+        out.append(dict(record_beta=True, record_watermarks=True,
+                        record_guard=True, guard_lo=-band, guard_hi=band,
+                        guard_stop=kw["num_records"] - 1))
+    return out
+
+
+def perstep_parity(dev, note):
+    """Phase 2's per-step cases: every variant of every case of
+    ``PERSTEP_PARITY_CASES`` against the plain version at 0.0 error, each
+    row passed to ``note``; the guard trips at a mid record and never."""
+    import torch
+    from repro_torch.kernels.bittide_step import (bittide_perstep,
+                                                  bittide_perstep_torch)
+    for case in PERSTEP_PARITY_CASES:
+        topo, args, mask = perstep_inputs(case, dev)
+        kw = dict(num_records=PERSTEP_RECORDS, record_every=PERSTEP_EVERY,
+                  ctrl_mask=mask)
+        trips = []
+        for v in perstep_variants(args, kw):
+            before = bittide_perstep.launches
+            got = bittide_perstep(*args, **kw, **v)
+            torch.cuda.synchronize()
+            launched = bittide_perstep.launches - before
+            measure = v["record_beta"] or v["record_watermarks"]
+            assert launched == PERSTEP_RECORDS * (
+                PERSTEP_EVERY + 2 * measure), launched
+            want = bittide_perstep_torch(*args, **kw, **v)
+            row = dict(phase="parity", kernel="bittide_step", case=case,
+                       topology=topo.name, classes=int(args[3].shape[0]),
+                       beta=v["record_beta"],
+                       watermarks=v["record_watermarks"],
+                       guard=v.get("record_guard", False),
+                       launches=launched)
+            if row["guard"]:
+                row["trip"] = int(want.guard_state)
+                trips.append(row["trip"])
+            row.update(kernel_vs_plain(got, want, exact=True))
+            note("bittide_step", row)
+        assert trips[0] < PERSTEP_RECORDS - 1 and \
+            trips[1] == PERSTEP_RECORDS, trips
 
 
 def timed(fn):
@@ -783,7 +890,7 @@ def run_main_path(name, topo, b, kp, dt, steps, rec, tel, dev, engine,
                bound_ms=bound_ms, bound_by=bound_by, **summ)
     assert err_ss <= bar, out
     assert summ["converged_draws"] == b, out
-    return out, args, kw
+    return out, args, kw, res
 
 
 def run_tiled(dev, k=22, b=8, steps=2_000, rec=100):
@@ -792,7 +899,7 @@ def run_tiled(dev, k=22, b=8, steps=2_000, rec=100):
     from repro_torch.core import torus3d
     from repro_torch.kernels.bittide_step import bittide_tiled
     from repro_torch.telemetry import Telemetry
-    out, args, kw = run_main_path(
+    out, args, kw, res = run_main_path(
         "tiled", torus3d(k), b, 2e-8, 5e-3, steps, rec,
         Telemetry(watermarks=True), dev, "tiled", subset=b, reps=1,
         plain_depth=(2, 2))
@@ -832,7 +939,7 @@ def run_tiled(dev, k=22, b=8, steps=2_000, rec=100):
     out.update(panel_copy_ms_per_pass_16B=[t / ab_passes for t in ms["b16"]],
                panel_copy_ms_per_pass_4B=[t / ab_passes for t in ms["b4"]])
     del buf, a_off, off_args
-    return out
+    return out, res
 
 
 @contextlib.contextmanager
@@ -1058,7 +1165,8 @@ def run_scenarios(dev, b=256, steps=40_000):
     assert guard["identical_splices"] and guard["guard_latency_one"], guard
     assert guard["splices"] >= 3, guard
     return dict(fused_launches=launches + fus_launches,
-                tiled_launches=til_launches,
+                tiled_launches=til_launches, swap_freq=res.freq_ppm[:16],
+                swap_beta=res.beta[:16], rtt_shift=rtt_shift,
                 held=[held["bittide_fused"], til_held["bittide_tiled"],
                       fus_held["bittide_fused"]],
                 held_kernels=["bittide_fused", "bittide_tiled",
@@ -1383,6 +1491,260 @@ def run_chaos(dev, draws=1024):
     return out
 
 
+def perstep_call_args(a):
+    """(args, kw) of ``bittide_perstep`` for one recorded
+    ``_perstep_engine`` call."""
+    args = (a["psi"], a["nu"], a["nu_u"], a["a_t"], a["deg"], a["lamsum"],
+            a["lat"], a["kp"], a["beta_off"], a["dt_frames"])
+    kw = dict(num_records=a["num_records"], record_every=a["record_every"],
+              ctrl_mask=a["ctrl_mask"], record_beta=a["record_beta"],
+              record_watermarks=a["record_watermarks"],
+              record_guard=a["record_guard"], guard_lo=a["guard_lo"],
+              guard_hi=a["guard_hi"], guard_stop=a["guard_stop"])
+    return args, kw
+
+
+def hold_perstep_calls(calls, max_records: int) -> dict:
+    """Hold each recorded per-step engine call against the plain version
+    on the call's own inputs at 0.0 error: the call's own outputs when it
+    ran at most ``max_records`` records, else the kernel launched again
+    on its inputs for its first ``max_records`` records (the stop cap
+    clipped to them).  Returns the worst errors and the calls held."""
+    from repro_torch.kernels.bittide_step import (bittide_perstep,
+                                                  bittide_perstep_torch)
+    worst = dict(calls=0, freq_ppm=0.0, beta_frames=0.0, psi_frames=0.0)
+    for a, out in calls:
+        args, kw = perstep_call_args(a)
+        if kw["num_records"] > max_records:
+            kw["num_records"] = max_records
+            if kw["record_guard"]:
+                kw["guard_stop"] = min(kw["guard_stop"], max_records - 1)
+            out = bittide_perstep(*args, **kw)
+        want = bittide_perstep_torch(*args, **kw)
+        err = kernel_vs_plain(out, want, exact=True)
+        worst["calls"] += 1
+        worst["freq_ppm"] = max(worst["freq_ppm"], err["freq_err_ppm"])
+        worst["beta_frames"] = max(worst["beta_frames"],
+                                   err.get("beta_err_frames", 0.0))
+        worst["psi_frames"] = max(worst["psi_frames"], err["psi_err_frames"])
+    return worst
+
+
+def run_perstep(dev, tiled_res, scen, k=22, steps=2_000, rec=100,
+                swap_steps=40_000, swap_draws=16):
+    """Phase 10: the per-step lane (see the module docstring)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import (BittideNetwork, ControllerConfig,
+                                  OscillatorSpec, ReframePolicy, SimConfig,
+                                  fully_connected, make_links, torus3d)
+    from repro_torch.core.latency import rtt_table
+    from repro_torch.kernels import (EngineOptions, ops,
+                                     simulate_ensemble_dense)
+    from repro_torch.kernels.bittide_step import (bittide_perstep,
+                                                  bittide_perstep_torch)
+    from repro_torch.scenarios import (DriftRamp, LatencyStep, Scenario,
+                                       edges_between, runner)
+    from repro_torch.telemetry import Telemetry
+    out = {}
+
+    # (a) Full width at Fig-18 scale: draws 0 and 1 of phase 6.
+    topo = torus3d(k)
+    n = topo.num_nodes
+    links = make_links(topo, cable_m=2.0)
+    ppm = np.random.default_rng(0).uniform(-8, 8, (8, n))[:2]
+    records = steps // rec
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bittide_perstep.launches = 0
+    t0 = time.perf_counter()
+    with recorded_engine_calls(ops, "_perstep_engine") as calls:
+        res = simulate_ensemble_dense(
+            topo, links, ppm, steps, 2e-8, dt=5e-3, record_every=rec,
+            options=EngineOptions(engine="per-step"),
+            telemetry=Telemetry(watermarks=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_a = bittide_perstep.launches
+    mem = torch.cuda.max_memory_allocated()
+    assert launches_a == 2 * (steps + 2 * records), launches_a
+    assert res.engine == "per-step" and res[0].shape == (2, records, n)
+    assert np.isfinite(res[0]).all()
+    tiled_freq, tiled_wm = tiled_res[0][:2], tiled_res.watermarks
+    err_tiled = float(np.abs(res[0] - tiled_freq).max())
+    wm_same = all(np.array_equal(getattr(res.watermarks, f),
+                                 getattr(tiled_wm, f)[:2])
+                  for f in ("beta_abs_max", "peak_record", "nu_min_ppm",
+                            "nu_max_ppm"))
+    assert err_tiled <= FREQ_ATOL_PPM, err_tiled
+    assert np.array_equal(res.watermarks.peak_record,
+                          tiled_wm.peak_record[:2])
+    assert float(np.abs(res.watermarks.nu_max_ppm
+                        - tiled_wm.nu_max_ppm[:2]).max()) <= FREQ_ATOL_PPM
+    (a, _), _ = calls
+    args, kw = perstep_call_args(a)
+    passes = steps + records
+    call_ms = cuda_ms(lambda: bittide_perstep(*args, **kw), 1)
+    # The plain version over 2 records x 2 periods with the measure pass,
+    # against the kernel on the same work.
+    pkw = dict(kw, num_records=2, record_every=2)
+    got = bittide_perstep(*args, **pkw)
+    want, plain_s = timed(lambda: bittide_perstep_torch(*args, **pkw))
+    err = kernel_vs_plain(got, want, exact=True)
+    same_ms = cuda_ms(lambda: bittide_perstep(*args, **pkw), 3)
+    # Yardstick (not used by the port): the aggregation of one period as
+    # one torch.mv per latency class.
+    x = torch.randn(n, device=dev)
+    a_t = args[3]
+    mv_ms = cuda_ms(lambda: [torch.mv(a_t[c].t(), x)
+                             for c in range(a_t.shape[0])], 5)
+    nnz = float((a_t != 0).sum())
+    bound_ms, bound_by = bound(1, n, a_t.shape[0], nnz, 1, 0, False, False)
+    out["a"] = dict(
+        phase="perstep", topology=topo.name, nodes=n, draws=2, steps=steps,
+        record_every=rec, dt=5e-3, kp=2e-8, engine=res.engine,
+        stack_bytes=4 * a_t.shape[0] * n * n, launches=launches_a,
+        wall_s=wall, max_memory_allocated=mem, kernel_ms_per_draw=call_ms,
+        kernel_passes_per_draw=passes,
+        kernel_ms_per_pass=call_ms / passes,
+        kernel_ms_per_period_with_measure=call_ms / steps,
+        bound_ms_per_pass=bound_ms, bound_by=bound_by,
+        library_ms_per_pass=mv_ms,
+        library_note="one torch.mv per latency class: the aggregation of "
+                     "one period only, not the update; not used by the port",
+        plain_ms=plain_s * 1e3, plain_ms_per_pass=plain_s * 1e3 / 6,
+        plain_work="2 records x 2 periods + measure passes",
+        kernel_ms_same_work=same_ms,
+        **{f"kernel_vs_plain_{key}": v for key, v in err.items()},
+        freq_err_vs_tiled_ppm=err_tiled,
+        bit_identical_to_tiled=bool(np.array_equal(res[0], tiled_freq)),
+        watermarks_identical_to_tiled=wm_same,
+        **summary(res[0], (np.arange(1, records + 1) * rec) * 5e-3))
+    emit(out["a"])
+    del calls, args, kw, a_t, got, want
+
+    # (b) The cable swap through the facade, 40,000 periods, the first 16
+    # of phase 7's draws.
+    fc8 = fully_connected(8)
+    ppm = np.random.default_rng(0).uniform(-8, 8, (256, 8)).astype(
+        np.float32)[:swap_draws]
+    net = BittideNetwork(topo=fc8, links=make_links(fc8, cable_m=2.0),
+                         ppm_u=ppm)
+    swap = edges_between(fc8, 0, 2)
+    sc = Scenario(events=(LatencyStep(t=swap_steps * 1e-4 / 2, edges=swap,
+                                      cable_m=1000.0, reestablish=True),),
+                  name="fiber-spool-swap")
+    bittide_perstep.launches = 0
+    t0 = time.perf_counter()
+    with recorded_engine_calls(runner, "_perstep_engine") as calls:
+        sw = net.run_scenario(sc, ControllerConfig(kp=2e-8),
+                              SimConfig(dt=1e-4, steps=swap_steps,
+                                        record_every=20),
+                              options=EngineOptions(engine="per-step"),
+                              telemetry=Telemetry(beta=True))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_b = bittide_perstep.launches
+    assert launches_b >= 1 and sw.engine == "per-step"
+    shift = int((sw.rtt(1) - sw.rtt(0))[swap[0]])
+    freq_err = float(np.abs(sw.freq_ppm - scen["swap_freq"]).max())
+    beta_err = float(np.abs(sw.beta - scen["swap_beta"]).max())
+    held = hold_perstep_calls(calls, max_records=10)
+    del calls
+    out["b"] = dict(
+        phase="perstep_swap", entry="BittideNetwork.run_scenario",
+        topology=fc8.name, draws=swap_draws, steps=swap_steps,
+        record_every=20,
+        launches=launches_b, engine_calls=sw.num_launches, wall_s=wall,
+        rtt_shift_frames=shift, rtt_shift_fused=scen["rtt_shift"],
+        freq_err_vs_fused_ppm=freq_err, beta_err_vs_fused_frames=beta_err,
+        bit_identical_to_fused=bool(
+            np.array_equal(sw.freq_ppm, scen["swap_freq"])
+            and np.array_equal(sw.beta, scen["swap_beta"])),
+        kernel_vs_plain=held, kernel_vs_plain_records=10)
+    emit(out["b"])
+    assert shift == scen["rtt_shift"], out["b"]
+    assert freq_err <= FREQ_ATOL_PPM and beta_err <= BETA_ATOL_FRAMES, \
+        out["b"]
+
+    # (c) Phase 7's guarded torus on per-step with three draws whose
+    # drift rates differ, so that their trips differ and the host resync
+    # re-runs draws; against the forced fused lane on the same batch.
+    topo = torus3d(8)
+    links = make_links(topo, cable_m=2.0)
+    p = np.random.default_rng(7).uniform(-0.25, 0.25, topo.num_nodes)
+    ppm = np.tile((p - p.mean()).astype(np.float32), (3, 1))
+    sc = Scenario(events=(
+        DriftRamp(t=0.048, t_end=0.24, nodes=tuple(range(64)),
+                  rate_ppm_per_s=np.array([150.0, 120.0, 180.0])),
+        LatencyStep(t=0.288, edges=edges_between(topo, 0, 1),
+                    cable_m=1000.0)), name="torus-drift-swap")
+    cfg = SimConfig(dt=1e-3, steps=384, record_every=6)
+    tel = Telemetry(beta=True, guard=ReframePolicy(depth=16, margin=5.0))
+    bittide_perstep.launches = 0
+    with recorded_engine_calls(runner, "_perstep_engine") as calls:
+        ps = BittideNetwork(topo, links, ppm).run_scenario(
+            sc, ControllerConfig(kp=6e-7), cfg,
+            options=EngineOptions(engine="per-step"), telemetry=tel)
+    launches_c = bittide_perstep.launches
+    resync = len(calls) - 3 * ps.num_launches
+    # Held: the first chunk's three draws and every resync re-run (a
+    # draw's second call from the same state), over their first 2 records.
+    seen, picked = set(), []
+    for i, (a, o) in enumerate(calls):
+        ptr = a["psi"].data_ptr()
+        if i < 3 or ptr in seen:
+            picked.append((a, o))
+        seen.add(ptr)
+    held_c = hold_perstep_calls(picked, 2)
+    held_c["resync_calls"] = len(picked) - 3
+    del calls, picked
+    fu = BittideNetwork(topo, links, ppm).run_scenario(
+        sc, ControllerConfig(kp=6e-7), cfg,
+        options=EngineOptions(engine="fused"), telemetry=tel)
+    splices = lambda r: [(x.record, np.asarray(x.shift).tolist())
+                         for x in r.reframes]
+    out["c"] = dict(
+        phase="perstep_guard", topology=topo.name, draws=3,
+        launches=launches_c, splices=len(ps.reframes),
+        resync_draw_runs=resync,
+        identical_splices_to_fused=splices(ps) == splices(fu),
+        guard_latency_one=all(x.guard_latency == 1 for x in ps.reframes),
+        freq_err_vs_fused_ppm=float(np.abs(ps.freq_ppm
+                                           - fu.freq_ppm).max()),
+        bit_identical_to_fused=bool(np.array_equal(ps.freq_ppm,
+                                                   fu.freq_ppm)),
+        kernel_vs_plain=held_c)
+    emit(out["c"])
+    assert out["c"]["identical_splices_to_fused"], out["c"]
+    assert out["c"]["guard_latency_one"] and out["c"]["splices"] >= 3
+    assert resync >= 1, out["c"]
+    assert out["c"]["freq_err_vs_fused_ppm"] <= FREQ_ATOL_PPM, out["c"]
+
+    # (d) The quickstart: examples/quickstart.py's flow on the card.
+    net = BittideNetwork.build(fully_connected(8), cable_m=2.0,
+                               osc=OscillatorSpec(initial_ppm=8.0, seed=0))
+    (sync, sync_s) = timed(lambda: net.sync(
+        ctrl=ControllerConfig(kind="discrete", kp=2e-8, fs=1e-7,
+                              pulses_per_update=50),
+        cfg=SimConfig(dt=5e-5, steps=10_000, record_every=20,
+                      quantize_beta=True)))
+    out["d"] = dict(phase="quickstart", converged=sync.converged,
+                    convergence_time_s=sync.convergence_time_s,
+                    freq_spread_ppm=sync.freq_spread_ppm, wall_s=sync_s,
+                    rtt_table={str(i): v for i, v in
+                               rtt_table(sync.lsn.topo, net.links).items()},
+                    latency_0_1=sync.lsn.latency(0, 1))
+    emit(out["d"])
+    assert sync.converged and sync.freq_spread_ppm < 1.0, out["d"]
+    assert 33 <= out["d"]["latency_0_1"] <= 37, out["d"]
+    out["launches"] = launches_a + launches_b + launches_c
+    out["held"] = [dict(freq_ppm=err["freq_err_ppm"],
+                        beta_frames=err.get("beta_err_frames", 0.0)),
+                   held, held_c]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1401,7 +1763,8 @@ def main() -> int:
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    libs = build.build(["bittide_fused", "bittide_tiled", "bittide_sparse"])
+    libs = build.build(["bittide_fused", "bittide_tiled", "bittide_sparse",
+                        "bittide_step"])
     seconds = time.perf_counter() - t0
     for name, lib in libs.items():
         log = lib.with_suffix(".so.log")
@@ -1417,14 +1780,14 @@ def main() -> int:
     worst = phase_parity(dev)
 
     # 3. main path: FC8 ensemble at users' size
-    fc8, _, _ = run_main_path(
+    fc8, *_ = run_main_path(
         "fc8", fully_connected(8), 4096, 2e-8, 5e-5, 10_000, 20,
         Telemetry(beta=True, watermarks=True), dev, "fused", subset=256,
         reps=3)
     emit(fc8)
 
     # 4. dense torus at the fused regime's size
-    torus, _, _ = run_main_path(
+    torus, *_ = run_main_path(
         "torus", torus3d(6), 256, 2e-8, 1e-3, 2_000, 20,
         Telemetry(watermarks=True), dev, "fused", subset=16, reps=2)
     emit(torus)
@@ -1462,7 +1825,7 @@ def main() -> int:
     assert seg["converged_draws"] == 64 and seg["final_band_ppm_max"] <= 1.0
 
     # 6. the tiled lane at Fig-18 size
-    tiled = run_tiled(dev)
+    tiled, tiled_res = run_tiled(dev)
     emit(tiled)
 
     # 7. the scenario runner
@@ -1476,12 +1839,18 @@ def main() -> int:
     # 9. chaos campaigns on the sparse lane
     chaos = run_chaos(dev)
 
+    # 10. the per-step lane: Fig-18 scale, the cable swap through the
+    # facade, the guard's host resync, the quickstart
+    perstep = run_perstep(dev, tiled_res, scen)
+
     # The kernels line, the card line, the last line.  Launches: the main
-    # paths' counts (phases 3, 4, 6, 7, 8 and 9; a wrapper counts its calls
-    # that launched — one bittide_tiled or bittide_sparse call launches a
-    # kernel per period and two or three per measure pass from C).
-    # Errors: the worst over every comparison with the plain version
-    # (phase 2, the main paths' launches, phases 7 and 9's engine calls).
+    # paths' counts (phases 3, 4, 6, 7, 8, 9 and 10; the fused, tiled and
+    # sparse wrappers count their calls that launched — one bittide_tiled
+    # or bittide_sparse call launches a kernel per period and two or three
+    # per measure pass from C — and bittide_perstep counts the kernels its
+    # C loop launched).  Errors: the worst over every comparison with the
+    # plain version (phase 2, the main paths' launches, phases 7, 9 and
+    # 10's engine calls).
     errs = {k: dict(w) for k, w in worst.items()}
 
     def fold(kernel, freq_ppm, beta_frames):
@@ -1497,6 +1866,9 @@ def main() -> int:
     fold("bittide_sparse", sparse["kernel_vs_plain_freq_err_ppm"], 0.0)
     for h in chaos["held"]:
         fold("bittide_sparse", h["freq_ppm"], h["beta_frames"])
+    for h in perstep["held"]:
+        fold("bittide_step", h["freq_ppm"], h["beta_frames"])
+    ps = perstep["a"]
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     no_library = ("no single PyTorch call runs the period loop (a matmul "
                   "covers only one period's aggregation)")
@@ -1539,7 +1911,23 @@ def main() -> int:
              library_note=("two torch.sparse CSR products per pass (w·ψ and "
                            "(w·lat)·ν, (N, N) x (N, B)), timed over phase "
                            f"8's {sparse['passes']} passes; the aggregation "
-                           "only, not the update; not used by the port"))]})
+                           "only, not the update; not used by the port")),
+        dict(name="bittide_step", route="cuda",
+             source="src/repro_torch/kernels/csrc/bittide_step.cu",
+             replaces="src/repro/kernels/bittide_step.py:137 (_kernel)",
+             launches=perstep["launches"],
+             max_abs_err=errs["bittide_step"]["freq_ppm"],
+             max_err_ppm=errs["bittide_step"]["freq_ppm"],
+             max_beta_err_frames=errs["bittide_step"]["beta_frames"],
+             ms=ps["kernel_ms_per_pass"], plain_ms=ps["plain_ms_per_pass"],
+             bound_ms=ps["bound_ms_per_pass"], bound_by=ps["bound_by"],
+             library_ms=ps["library_ms_per_pass"],
+             unit=f"one pass (one launch) of phase 10's {ps['topology']} "
+                  "run; the call's time over its periods and measure "
+                  "passes",
+             ms_per_draw_call=ps["kernel_ms_per_draw"],
+             plain_work=ps["plain_work"],
+             library_note=ps["library_note"])]})
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

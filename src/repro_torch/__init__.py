@@ -2,8 +2,10 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its
 layout module for module and never imports it or jax.  It holds the
-segment-sum core (``repro_torch.core``), the dense fused and tiled lanes
-on hand-written Hopper kernels (``repro_torch.kernels``), the scenario
+segment-sum core and the paper facade (``repro_torch.core``:
+``BittideNetwork``, latency, schedules, DDC, the frame-level oracle),
+the fused, tiled, sparse and per-step lanes on hand-written Hopper
+kernels (``repro_torch.kernels``), the scenario
 layer (``repro_torch.scenarios``), the telemetry types
 (``repro_torch.telemetry``) and ``repro_torch.convert``, which carries the
 reference's objects across.  Entry points run on the CUDA card unless

@@ -3,7 +3,8 @@
 A network and its state are this system's weights: the topology, the link
 parameters, the controller and simulation configs, and a prior result
 used as ``init=``; a scenario (its events) and a reframing policy carry a
-dynamic run across the same way.  Each converter reads the reference
+dynamic run across the same way, and a ``BittideNetwork`` the facade's
+whole network.  Each converter reads the reference
 object by attribute (duck typing, so this module imports nothing of
 ``repro``) and returns the port's type with numpy arrays, which both
 packages then consume unchanged::
@@ -20,12 +21,13 @@ import numpy as np
 
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.frame_model import LinkParams, SimConfig
+from repro_torch.core.network import BittideNetwork
 from repro_torch.core.reframing import ReframePolicy
 from repro_torch.core.topology import Topology
 from repro_torch.scenarios import events as _events
 
 __all__ = ["topology", "links", "controller", "sim_config", "init_state",
-           "event", "scenario", "reframe_policy"]
+           "event", "scenario", "reframe_policy", "network"]
 
 
 def topology(obj) -> Topology:
@@ -95,3 +97,11 @@ def scenario(obj) -> _events.Scenario:
 def reframe_policy(obj) -> ReframePolicy:
     """A reference ``ReframePolicy``."""
     return ReframePolicy(**_fields(ReframePolicy, obj))
+
+
+def network(obj, *, device=None) -> BittideNetwork:
+    """A reference ``BittideNetwork``: the same topology, links, ``ppm_u``
+    and ω_nom, running on ``device`` (None means the CUDA card)."""
+    return BittideNetwork(topo=topology(obj.topo), links=links(obj.links),
+                          ppm_u=np.array(obj.ppm_u, np.float64),
+                          omega_nom=float(obj.omega_nom), device=device)

@@ -19,10 +19,9 @@ class EngineOptions:
     Attributes:
       engine: lane name — "auto" dispatches by shape (the H100 regime
         table); "fused" and "tiled" are the dense lanes, "sparse" the ELL
-        lane for bounded-degree networks (and per-draw edge weights), and
-        ``run_scenario`` also takes "segment-sum" (its default).
-        "per-step" raises ``NotImplementedError`` until its kernel is
-        ported.
+        lane for bounded-degree networks (and per-draw edge weights),
+        "per-step" the one-draw-per-launch lane, and ``run_scenario`` also
+        takes "segment-sum" (its default).
       interpret: the reference's switch for the Pallas interpreter.  The
         port has no interpreter: a truthy value raises (pass
         ``device="cpu"`` to run the plain PyTorch versions instead).

@@ -14,14 +14,19 @@ and ``lamsum``:
 owns whole draws and loops over every period itself.  ``bittide_tiled``
 (``csrc/bittide_tiled.cu``) replaces ``_tiled_kernel``, the lane for dense
 networks beyond the fused regime: one launch per period (the launch loop
-runs in C), the stack streamed from device memory in panels.  The sources'
-headers state each design and bound.
+runs in C), the stack streamed from device memory in panels.
+``bittide_perstep`` (``csrc/bittide_step.cu``) replaces ``_kernel``, the
+reference's per-step lane: one draw, one launch per period (the record
+loop runs in C), one thread per node.  The sources' headers state each
+design and bound.
 
-Both kernels sum every (b, i) in one order — classes in order, nodes
+The kernels sum every (b, i) in one order — classes in order, nodes
 j = 0..N-1 in order, no fused multiply-add — so a draw's bits depend
 neither on B nor on the kernel, and the plain PyTorch versions
 ``bittide_fused_torch`` / ``bittide_tiled_torch`` (one function: the two
-kernels compute the same thing in the same order) equal them bit for bit.
+kernels compute the same thing in the same order) and
+``bittide_perstep_torch`` (the same period and measure pass on one draw)
+equal them bit for bit.
 A wrapper runs the plain version only for CPU tensors; for CUDA tensors it
 launches its kernel or raises.
 
@@ -55,7 +60,8 @@ import torch
 from . import build
 from .api import EngineOutputs
 
-__all__ = ["bittide_fused", "bittide_fused_torch", "bittide_tiled",
+__all__ = ["bittide_fused", "bittide_fused_torch", "bittide_perstep",
+           "bittide_perstep_torch", "bittide_tiled",
            "bittide_tiled_torch", "select_engine", "draws_per_cta",
            "launch_plan", "tiled_launch_plan", "FUSED_N_MAX", "KERNEL_N_MAX",
            "MAX_CLASSES", "SPARSE_TILE", "TILE_I", "TILE_J",
@@ -75,7 +81,9 @@ __all__ = ["bittide_fused", "bittide_fused_torch", "bittide_tiled",
 #   bound (the ELL slot count K), while the O(K·N) tables and the O(B·N)
 #   state fit the same budget: one period reads (4 + 8)·K·N bytes of
 #   tables, not a stack.
-# * beyond: the per-step lane of the reference (not ported yet).
+# * beyond: the per-step lane (one draw per launch, the stack read from
+#   device memory every period) — on this card the stack no longer fits
+#   there either, so in practice a caller reaches the lane by name.
 FUSED_N_MAX = 256
 KERNEL_N_MAX = 1024
 MAX_CLASSES = 8            # latency classes the fused kernel keeps in registers
@@ -114,8 +122,9 @@ def select_engine(b: int, n: int, c: int,
     while the stack fits TILED_STACK_BYTES_MAX; else, when the caller
     gives the ELL slot count ``max_deg`` and the sparse lane's tables and
     state fit the same budget, ``("sparse", nodes per CTA)`` (at C = 1:
-    N > 131,072); else ``("per-step", 0)``, the reference's last lane,
-    which is not ported yet."""
+    N > 131,072); else ``("per-step", 0)``, the reference's last lane
+    (:func:`bittide_perstep`), which ``engine="per-step"`` also selects
+    by name."""
     if n <= FUSED_N_MAX and c <= MAX_CLASSES:
         return "fused", n
     if 4 * c * n * n <= TILED_STACK_BYTES_MAX:
@@ -144,6 +153,11 @@ def _library(name: str) -> ctypes.CDLL:
             + [ci, vp, vp])
         lib.bittide_smem_optin.restype = ci
         lib.bittide_smem_optin.argtypes = []
+    elif name == "bittide_step":
+        lib.bittide_step_launch.restype = ci
+        lib.bittide_step_launch.argtypes = (
+            [vp] * 6 + [cf] * 3 + [ci] * 5 + [vp] * 8 + [cf] * 2
+            + [vp] * 3)
     elif name == "bittide_tiled":
         lib.bittide_tiled_launch.restype = ci
         lib.bittide_tiled_launch.argtypes = (
@@ -198,20 +212,27 @@ def _check(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off, ctrl_mask,
     if ctrl_mask is not None:
         rows = ctrl_mask.shape[0] if ctrl_mask.dim() == 2 else -1
         shapes["ctrl_mask"] = (ctrl_mask, (rows if rows in (1, b) else 1, n))
-    if guard is not None:
-        lo, hi, stop = guard
-        if lo is None or hi is None or stop is None:
-            raise ValueError("record_guard=True requires guard_lo, guard_hi "
-                             "and guard_stop")
-        shapes["guard_lo"] = (lo, (b,))
-        shapes["guard_hi"] = (hi, (b,))
+    if guard is not None and all(x is not None for x in guard):
+        shapes["guard_lo"] = (guard[0], (b,))
+        shapes["guard_hi"] = (guard[1], (b,))
+    _validate(shapes, psi.device, c, num_records, record_every, guard)
+
+
+def _validate(shapes: dict, device, c: int, num_records: int,
+              record_every: int, guard) -> None:
+    """Raise on a tensor of ``shapes`` (name -> (tensor, shape)) that is
+    not float32, contiguous, of its shape and on ``device``, on no latency
+    class, on an empty run, or on a guard without its band or stop cap."""
+    if guard is not None and any(x is None for x in guard):
+        raise ValueError("record_guard=True requires guard_lo, guard_hi "
+                         "and guard_stop")
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != psi.device:
-            raise ValueError(f"{name} is on {t.device}, psi on {psi.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, psi on {device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if c < 1:
@@ -421,6 +442,114 @@ def bittide_tiled(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
 bittide_tiled.launches = 0
 
 
+def _check_perstep(psi, nu, nu_u, a_t, deg, lamsum, lat, ctrl_mask,
+                   num_records: int, record_every: int, guard):
+    n = psi.shape[-1]
+    c = a_t.shape[0] if a_t.dim() == 3 else 0
+    shapes = {"psi": (psi, (n,)), "nu": (nu, (n,)), "nu_u": (nu_u, (n,)),
+              "a_t": (a_t, (c, n, n)), "deg": (deg, (n,)),
+              "lamsum": (lamsum, (n,)), "lat": (lat, (c,))}
+    if ctrl_mask is not None:
+        shapes["ctrl_mask"] = (ctrl_mask, (n,))
+    _validate(shapes, psi.device, c, num_records, record_every, guard)
+
+
+def bittide_perstep(psi, nu, nu_u, a_t, deg, lamsum, lat, kp: float,
+                    beta_off: float, dt_frames: float, *,
+                    num_records: int, record_every: int,
+                    ctrl_mask: Optional[torch.Tensor] = None,
+                    record_beta: bool = False,
+                    record_watermarks: bool = False,
+                    record_guard: bool = False,
+                    guard_lo: Optional[float] = None,
+                    guard_hi: Optional[float] = None,
+                    guard_stop: Optional[int] = None) -> EngineOutputs:
+    """The per-step engine: ONE draw, one kernel launch per period.
+
+    Args:
+      psi, nu, nu_u: (N,) float32 state of the draw.
+      a_t: (C, N, N) float32 stack in kernel layout (``a_t[c, j, i] =
+        A[c, i, j]``); deg: its (N,) degree fold; lamsum: (N,) λeff fold.
+      lat: (C,) class latencies in frames.
+      kp, beta_off, dt_frames: the draw's gains and frames per period
+        (Python floats, passed to the kernel as float32 arguments).
+      ctrl_mask: None (all on) or (N,) controller enables; nodes at ≤ 0.5
+        hold their ν.
+      record_beta / record_watermarks / record_guard: the measure pass's
+        outputs; guard_lo, guard_hi: the guard band in frames per unit
+        degree (floats), guard_stop: the last record to run.
+
+    Returns :class:`EngineOutputs` — psi, nu (N,); freq (R, N) ν records;
+    beta (R, N) or None; watermarks, each (N,), or None; guard_state the
+    0-dim int32 trip record (``num_records`` when the draw never tripped)
+    or None.  Records after the trip or after ``guard_stop`` are frozen:
+    ν re-emits the frozen state's ν and β is zero, as in the reference.
+
+    On the card every period and both launches of each record's measure
+    pass (the row mean, then β) run from one C call on the current
+    stream with no sync; ``launches`` counts the kernels that call
+    launched.
+    """
+    guard = (guard_lo, guard_hi, guard_stop) if record_guard else None
+    _check_perstep(psi, nu, nu_u, a_t, deg, lamsum, lat, ctrl_mask,
+                   num_records, record_every, guard)
+    VARIANTS_USED.add(("per-step", bool(record_beta),
+                       bool(record_watermarks), bool(record_guard)))
+    kw = dict(num_records=num_records, record_every=record_every,
+              ctrl_mask=ctrl_mask, record_beta=record_beta,
+              record_watermarks=record_watermarks, record_guard=record_guard,
+              guard_lo=guard_lo, guard_hi=guard_hi, guard_stop=guard_stop)
+    if _device_kind(psi, "bittide_perstep") == "cpu":
+        return bittide_perstep_torch(psi, nu, nu_u, a_t, deg, lamsum, lat,
+                                     kp, beta_off, dt_frames, **kw)
+    n = psi.shape[0]
+    c = a_t.shape[0]
+    dev = psi.device
+    mask = (torch.ones(n, dtype=torch.float32, device=dev)
+            if ctrl_mask is None else ctrl_mask)
+    psi_buf = torch.empty((2, n), dtype=torch.float32, device=dev)
+    nu_buf = torch.empty_like(psi_buf)
+    psi_buf[0].copy_(psi)
+    nu_buf[0].copy_(nu)
+    freq = torch.empty((num_records, n), dtype=torch.float32, device=dev)
+    beta = torch.empty_like(freq) if record_beta else None
+    new = lambda dtype=torch.float32: torch.empty(n, dtype=dtype, device=dev)
+    wm = ((new(), new(torch.int32), new(), new()) if record_watermarks
+          else None)
+    trip = (torch.full((), num_records, dtype=torch.int32, device=dev)
+            if record_guard else None)
+    mean = torch.empty(1, dtype=torch.float32, device=dev)
+    measure = record_beta or record_watermarks or record_guard
+    last = (min(num_records - 1, int(guard_stop)) if record_guard
+            else num_records - 1)
+    rc = _library("bittide_step").bittide_step_launch(
+        _ptr(a_t), _ptr(nu_u), _ptr(mask), _ptr(deg), _ptr(lamsum),
+        _ptr(lat), float(kp), float(beta_off), float(dt_frames), n, c,
+        num_records, record_every, last, _ptr(psi_buf), _ptr(nu_buf),
+        _ptr(freq), _ptr(beta),
+        *(_ptr(x) for x in (wm if wm else (None,) * 4)),
+        float(guard_lo) if record_guard else 0.0,
+        float(guard_hi) if record_guard else 0.0, _ptr(trip), _ptr(mean),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"bittide_step launch failed with CUDA error {rc} "
+                           f"(N={n}, C={c})")
+    ran = max(last + 1, 0)
+    bittide_perstep.launches += ran * (record_every + (2 if measure else 0))
+    slot = (ran * record_every) % 2
+    psi_out, nu_out = psi_buf[slot], nu_buf[slot]
+    if ran < num_records:
+        # Records past the stop cap re-emit the frozen state.
+        freq[ran:] = nu_out
+        if beta is not None:
+            beta[ran:] = 0.0
+    return EngineOutputs(psi=psi_out, nu=nu_out, freq=freq, beta=beta,
+                         watermarks=wm, guard_state=trip)
+
+
+bittide_perstep.launches = 0
+
+
 def _aggregate(a_t, xs):
     """Σ_c Σ_j A[c, i, j]·x_c[b, j], classes then nodes j summed in order
     (``a_t[c, j]`` is column j of A_c)."""
@@ -431,6 +560,42 @@ def _aggregate(a_t, xs):
             part.add_(a_t[c, j] * x[:, j:j + 1])
         acc = acc + part
     return acc
+
+
+def _period_torch(psi, nu, nu_u, a_t, deg, lamsum, lats, kp_col, boff_col,
+                  enabled, dt_frames: float):
+    """One control period of the plain versions, in the kernels' order."""
+    acc = _aggregate(a_t, [psi - nu * lt for lt in lats])
+    err = acc - (psi + boff_col) * deg + lamsum
+    c_rel = kp_col * err
+    nu_next = torch.where(enabled, nu_u + c_rel + nu_u * c_rel, nu)
+    return psi + nu_next * dt_frames, nu_next
+
+
+def _measure_torch(psi, nu, a_t, deg, lamsum, lats):
+    """The measure pass of the plain versions: β of the state with ψ
+    centred by its row mean (summed j = 0..N-1 in order)."""
+    n = psi.shape[1]
+    # A tensor divisor: CUDA divides by a host scalar as a multiply by its
+    # reciprocal, the kernels by the true quotient.
+    n_t = torch.tensor(float(n), dtype=torch.float32, device=psi.device)
+    total = torch.zeros_like(psi[:, 0])
+    for j in range(n):
+        total = total + psi[:, j]
+    psi_c = psi - (total / n_t)[:, None]
+    return _aggregate(a_t, [psi_c - nu * lt for lt in lats]) \
+        - psi_c * deg + lamsum
+
+
+def _fold_watermarks(wm, bnode, nu, t: int):
+    """Running (max |β|, its first record, ν min, ν max) after record t."""
+    babs = bnode.abs()
+    if wm is None:
+        return babs, torch.zeros_like(babs, dtype=torch.int32), nu, nu
+    bmax, idx, lo, hi = wm
+    return (torch.maximum(bmax, babs),
+            torch.where(babs > bmax, torch.full_like(idx, t), idx),
+            torch.minimum(lo, nu), torch.maximum(hi, nu))
 
 
 def bittide_fused_torch(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
@@ -458,9 +623,6 @@ def bittide_fused_torch(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
     enabled = mask > 0.5
     kp_col, boff_col = kp[:, None], beta_off[:, None]
     lats = [lat[:, k:k + 1] for k in range(c)]
-    # A tensor divisor: CUDA divides by a host scalar as a multiply by its
-    # reciprocal, the kernels by the true quotient.
-    n_t = torch.tensor(float(n), dtype=torch.float32, device=psi.device)
     measure = record_beta or record_watermarks or record_guard
     nan = float("nan")
     freq = torch.full((num_records, b, n), nan, device=psi.device)
@@ -473,32 +635,16 @@ def bittide_fused_torch(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
         if record_guard and (int(trip.min()) < t or t > guard_stop):
             break
         for _ in range(record_every):
-            acc = _aggregate(a_t, [psi - nu * lt for lt in lats])
-            err = acc - (psi + boff_col) * deg + lamsum
-            c_rel = kp_col * err
-            nu_next = nu_u + c_rel + nu_u * c_rel
-            nu = torch.where(enabled, nu_next, nu)
-            psi = psi + nu * dt_frames
+            psi, nu = _period_torch(psi, nu, nu_u, a_t, deg, lamsum, lats,
+                                    kp_col, boff_col, enabled, dt_frames)
         freq[t] = nu
         if not measure:
             continue
-        total = torch.zeros_like(psi[:, 0])
-        for j in range(n):
-            total = total + psi[:, j]
-        psi_c = psi - (total / n_t)[:, None]
-        bacc = _aggregate(a_t, [psi_c - nu * lt for lt in lats])
-        bnode = bacc - psi_c * deg + lamsum
+        bnode = _measure_torch(psi, nu, a_t, deg, lamsum, lats)
         if record_beta:
             beta[t] = bnode
         if record_watermarks:
-            babs = bnode.abs()
-            if wm is None:
-                wm = (babs, torch.zeros_like(babs, dtype=torch.int32), nu, nu)
-            else:
-                bmax, idx, lo, hi = wm
-                wm = (torch.maximum(bmax, babs),
-                      torch.where(babs > bmax, torch.full_like(idx, t), idx),
-                      torch.minimum(lo, nu), torch.maximum(hi, nu))
+            wm = _fold_watermarks(wm, bnode, nu, t)
         if record_guard:
             viol = ((bnode > guard_hi[:, None] * deg)
                     | (bnode < guard_lo[:, None] * deg)).any(dim=1)
@@ -510,3 +656,59 @@ def bittide_fused_torch(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
 
 # The tiled kernel sums in the fused kernel's order: one plain version.
 bittide_tiled_torch = bittide_fused_torch
+
+
+def bittide_perstep_torch(psi, nu, nu_u, a_t, deg, lamsum, lat, kp: float,
+                          beta_off: float, dt_frames: float, *,
+                          num_records: int, record_every: int,
+                          ctrl_mask: Optional[torch.Tensor] = None,
+                          record_beta: bool = False,
+                          record_watermarks: bool = False,
+                          record_guard: bool = False,
+                          guard_lo: Optional[float] = None,
+                          guard_hi: Optional[float] = None,
+                          guard_stop: Optional[int] = None) -> EngineOutputs:
+    """The plain PyTorch version of :func:`bittide_perstep` (same
+    contract): the fused plain version's period and measure pass on one
+    draw, with the reference's per-draw freeze — record t runs while the
+    draw has not tripped and t ≤ guard_stop; a frozen record re-emits the
+    frozen ν and a zero β."""
+    n = psi.shape[0]
+    dev = psi.device
+    f32 = lambda x: torch.tensor([[float(x)]], dtype=torch.float32,
+                                 device=dev)
+    row = lambda x: x.reshape(1, n)
+    psi, nu, nu_u, lamsum = row(psi), row(nu), row(nu_u), row(lamsum)
+    enabled = (torch.ones((1, n), dtype=torch.bool, device=dev)
+               if ctrl_mask is None else row(ctrl_mask) > 0.5)
+    lats = [lat[k:k + 1].reshape(1, 1) for k in range(a_t.shape[0])]
+    kp_col, boff_col = f32(kp), f32(beta_off)
+    freq = torch.empty((num_records, n), dtype=torch.float32, device=dev)
+    beta = torch.empty_like(freq) if record_beta else None
+    trip = num_records
+    wm = None
+    for t in range(num_records):
+        if record_guard and (trip < num_records or t > guard_stop):
+            freq[t] = nu[0]
+            if beta is not None:
+                beta[t] = 0.0
+            continue
+        for _ in range(record_every):
+            psi, nu = _period_torch(psi, nu, nu_u, a_t, deg, lamsum, lats,
+                                    kp_col, boff_col, enabled, dt_frames)
+        freq[t] = nu[0]
+        if not (record_beta or record_watermarks or record_guard):
+            continue
+        bnode = _measure_torch(psi, nu, a_t, deg, lamsum, lats)
+        if record_beta:
+            beta[t] = bnode[0]
+        if record_watermarks:
+            wm = _fold_watermarks(wm, bnode, nu, t)
+        if record_guard and bool(((bnode > f32(guard_hi) * deg)
+                                  | (bnode < f32(guard_lo) * deg)).any()):
+            trip = t
+    return EngineOutputs(
+        psi=psi[0], nu=nu[0], freq=freq, beta=beta,
+        watermarks=None if wm is None else tuple(x[0] for x in wm),
+        guard_state=(torch.tensor(trip, dtype=torch.int32, device=dev)
+                     if record_guard else None))

@@ -19,21 +19,32 @@ are:
 ``simulate_dense``
     Per-period telemetry (``record_every=1``), one draw.
 
+``simulate_dense_perstep``
+    The per-step lane (:func:`repro_torch.kernels.bittide_step.
+    bittide_perstep`, one launch per period) recording every period —
+    the benchmark baseline the fused engine removes the per-period
+    round trip from.
+
+``bittide_step``
+    One control period of one draw (the reference's per-step API).
+
 All return a :class:`DenseResult` — the ``(freq_ppm, psi)`` pair with
 ``.engine`` / ``.tile_j`` metadata, ``.nu`` (the exact final frequencies
 for ``init=`` chaining), ``.beta`` (per-node net occupancy records in
 frames) and ``.watermarks`` — as host numpy arrays.
 
-Lanes: ``EngineOptions(engine="fused")``, ``"tiled"``, ``"sparse"``, or
-``"auto"`` (the H100 regime table, ``select_engine``: fused up to 256
-nodes, tiled above while the dense stack fits the card, sparse beyond for
-a bounded-degree graph), and ``use_ref=True`` for the plain dense oracle.
+Lanes: ``EngineOptions(engine="fused")``, ``"tiled"``, ``"sparse"``,
+``"per-step"``, or ``"auto"`` (the H100 regime table, ``select_engine``:
+fused up to 256 nodes, tiled above while the dense stack fits the card,
+sparse beyond for a bounded-degree graph, per-step past that, with the
+reference's warning), and ``use_ref=True`` for the plain dense oracle.
 The sparse lane (:func:`repro_torch.kernels.bittide_sparse.bittide_sparse`)
 runs on the ELL slot tables of :func:`~repro_torch.kernels.bittide_sparse.
 ellify` — no stack is built — and is the only kernel lane that takes
 per-draw (B, E) ``edge_w`` and fully heterogeneous per-draw latencies.
-The per-step lane raises ``NotImplementedError`` naming its ROADMAP item;
-no lane falls back to another.
+The per-step lane launches its draws one after another from a host loop
+(a per-draw ``lamsum`` row stands in for the reference's per-draw λeff
+stack).  No lane falls back to another.
 
 The kernels map (draw, node) pairs to threads and mask their ragged
 edges themselves, so nothing is padded: the reference's 128-node tiles
@@ -59,29 +70,28 @@ from repro_torch.telemetry.watermarks import Watermarks
 
 from .api import EngineOptions, EngineOutputs
 from .bittide_sparse import bittide_sparse, ellify, max_in_degree
-from .bittide_step import (TILE_J, bittide_fused, bittide_tiled,
-                           select_engine, sparse_tile)
-from .ref import bittide_dense_multistep_ref
+from .bittide_step import (TILE_J, bittide_fused, bittide_perstep,
+                           bittide_tiled, select_engine, sparse_tile)
+from .ref import bittide_dense_multistep_ref, bittide_dense_step_ref
 
-__all__ = ["densify", "latency_classes", "simulate_dense", "simulate_fused",
+__all__ = ["bittide_step", "densify", "latency_classes", "simulate_dense",
+           "simulate_dense_perstep", "simulate_fused",
            "simulate_ensemble_dense", "DenseResult"]
 
 # Beyond this many exact latency classes, densify falls back to quantized
 # merging (the dense stack is (C, N, N) — C must stay small).
 MAX_EXACT_CLASSES = 8
 
-# Lanes of the reference this port does not have yet, by ROADMAP item.
-_UNPORTED = {"per-step": "ROADMAP queue item 9 (per-step lane)"}
-
 
 class DenseResult(tuple):
     """``(freq_ppm, psi)`` pair with engine-dispatch metadata attached.
 
     ``.engine`` names the lane (``"fused"`` | ``"tiled"`` | ``"sparse"`` |
-    ``"ref"``), ``.tile_j`` the adjacency panel width in nodes (N on the
-    fused lane, which keeps the whole stack; the tiled kernel's panel
-    width, at most ``TILE_J``, on the tiled lane; the sparse kernel's
-    nodes per CTA on the sparse lane).  ``.nu`` carries the exact final relative frequencies
+    ``"per-step"`` | ``"ref"``), ``.tile_j`` the adjacency panel width in
+    nodes (N on the fused lane, which keeps the whole stack; the tiled
+    kernel's panel width, at most ``TILE_J``, on the tiled lane; the
+    sparse kernel's nodes per CTA on the sparse lane; 0 on the per-step
+    lane).  ``.nu`` carries the exact final relative frequencies
     for ``init=`` chaining (``freq_ppm[..., -1, :]`` is ν·1e6 rounded
     through float32 and does not round-trip).  ``.beta`` is the per-node
     net occupancy record in frames, (B, R, N) / (R, N), or None;
@@ -291,6 +301,58 @@ def _sparse_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, nbr, latf, w,
                           guard_hi=guard_hi, guard_stop=guard_stop)
 
 
+def _perstep_engine(psi, nu, nu_u, ctrl_mask, a_t, deg, lamsum, lat,
+                    kp: float, beta_off: float, dt_frames: float,
+                    num_records: int, record_every: int,
+                    record_beta: bool = False,
+                    record_watermarks: bool = False,
+                    record_guard: bool = False, guard_lo=None,
+                    guard_hi=None, guard_stop=None) -> EngineOutputs:
+    """One run of the per-step lane for ONE draw (:func:`bittide_perstep`),
+    with the fused engines' record contract.
+
+    psi, nu, nu_u, lamsum: (N,) state and λeff fold; ctrl_mask: (N,);
+    a_t: (C, N, N) stack with its degree fold deg (N,); lat: (C,); kp,
+    beta_off, the guard band edges guard_lo / guard_hi (frames per unit
+    degree) and the stop cap guard_stop are host numbers, kernel
+    arguments — none selects a build, so a gain sweep builds nothing new.
+    ``guard_state`` is the 0-dim int32 trip record.
+    """
+    return bittide_perstep(psi, nu, nu_u, a_t, deg, lamsum, lat, kp,
+                           beta_off, dt_frames, num_records=num_records,
+                           record_every=record_every, ctrl_mask=ctrl_mask,
+                           record_beta=record_beta,
+                           record_watermarks=record_watermarks,
+                           record_guard=record_guard, guard_lo=guard_lo,
+                           guard_hi=guard_hi, guard_stop=guard_stop)
+
+
+def _run_perstep(a_t, lamsum, latv, psi0, nu0, nu_u, mask, kp, beta_off,
+                 dt_frames: float, num_records: int, record_every: int,
+                 tel: Telemetry, put) -> DenseResult:
+    """The per-step lane of :func:`simulate_ensemble_dense`: the draws run
+    one after another, each with its own λeff fold row (per-draw β0 needs
+    no per-draw stack) and its own mask row."""
+    b = psi0.shape[0]
+    deg = a_t.sum(dim=(0, 1))
+    lamsum_d, lat_d, mask_d = put(lamsum), put(latv), put(mask)
+    psi_d, nu_d, nu_u_d = put(psi0), put(nu0), put(nu_u)
+    outs = [_perstep_engine(
+        psi_d[bi], nu_d[bi], nu_u_d[bi], mask_d[bi % mask_d.shape[0]], a_t,
+        deg, lamsum_d[bi], lat_d[bi], float(kp[bi]), float(beta_off[bi]),
+        dt_frames, num_records, record_every, tel.beta, tel.watermarks)
+        for bi in range(b)]
+    stack = lambda xs: torch.stack(list(xs)).cpu().numpy()
+    wm = (_host_watermarks(tuple(torch.stack([o.watermarks[k] for o in outs])
+                                 for k in range(4)), num_records)
+          if tel.watermarks else None)
+    return DenseResult(
+        stack(o.freq * 1e6 for o in outs), stack(o.psi for o in outs),
+        "per-step", 0, nu=stack(o.nu for o in outs),
+        beta=stack(o.beta for o in outs) if tel.beta else None,
+        watermarks=wm)
+
+
 def _resolve_init(init, b: int, n: int, nu_u: np.ndarray):
     """Seed (psi0, nu0) from ``init`` (a prior result or a (ψ, ν) pair)."""
     if init is None:
@@ -462,10 +524,11 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
       edge_w: optional (E,) edge weights (0 = dropped link), or (B, E)
         per-draw weights (chaos LinkDrop victims) on the sparse lane.
       options: :class:`EngineOptions`; ``engine`` is "auto" (the H100
-        regime table, probed with the degree bound), "fused", "tiled" or
+        regime table, probed with the degree bound), "fused", "tiled",
         "sparse" (the ELL lane for bounded-degree networks; also the only
         kernel lane for per-draw (B, E) ``edge_w`` and fully heterogeneous
-        per-draw latencies).
+        per-draw latencies) or "per-step" (one draw per launch, one launch
+        per period, the draws looped on the host).
       telemetry: :class:`Telemetry` — ``beta`` / ``watermarks``.
       device: where to run; None means the CUDA card (raises without one).
 
@@ -495,10 +558,7 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
         raise ValueError("simulate_ensemble_dense runs one launch per call; "
                          "chunk_records is a run_scenario option")
     engine = opts.engine
-    if engine in _UNPORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: {_UNPORTED[engine]}")
-    if engine not in ("auto", "fused", "tiled", "sparse"):
+    if engine not in ("auto", "fused", "tiled", "sparse", "per-step"):
         raise ValueError(f"unknown engine {engine!r}")
     dev = resolve_device(device)
     ppm_u = np.atleast_2d(np.asarray(ppm_u, np.float32))
@@ -560,10 +620,11 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
         chosen = "ref"
     else:
         chosen = select_engine(b, n, c)[0] if engine == "auto" else engine
-        if chosen not in ("fused", "tiled"):
-            raise NotImplementedError(
-                f"N={n}, C={c} is outside the fused and tiled regimes and "
-                f"the {chosen} lane is not ported yet: {_UNPORTED[chosen]}")
+        if chosen == "per-step" and engine == "auto":
+            warnings.warn(
+                f"no fused/tiled working set fits the card for B={b}, "
+                f"N={n}, C={c}; falling back to the per-step kernel",
+                stacklevel=2)
     w = _edge_weights(topo, edge_w)
     put = lambda x: torch.as_tensor(np.array(x, np.float32, order="C"),
                                     device=dev)
@@ -576,6 +637,11 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
                      edge_w, b if beta0_batched else 1), (b, n))
     nu_u = ppm_u * np.float32(1e-6)
     psi0, nu0 = _resolve_init(init, b, n, nu_u)
+    if chosen == "per-step":
+        return _run_perstep(a_t, lamsum, latv, psi0, nu0, nu_u,
+                            _resolve_mask(ctrl_mask, b, n), kp, beta_off,
+                            float(omega_nom * dt), num_records, record_every,
+                            tel, put)
 
     out = _fused_engine(
         put(psi0), put(nu0), put(nu_u), put(kp), put(beta_off),
@@ -634,3 +700,84 @@ def simulate_dense(topo: Topology, links: LinkParams, ppm_u, steps: int,
                           beta_off=beta_off, record_every=1,
                           omega_nom=omega_nom, use_ref=use_ref,
                           device=device)
+
+
+def _gain_row(x, dev) -> torch.Tensor:
+    """A gain as the oracle's (1,) per-draw float32 row."""
+    return torch.tensor([float(x)], dtype=torch.float32, device=dev)
+
+
+def bittide_step(psi, nu, nu_u, a_t, lam_t, lat, kp: float, beta_off: float,
+                 dt_frames: float, *, ctrl_mask=None, use_ref: bool = False,
+                 device=None):
+    """One control period of one draw (the reference's per-step API).
+
+    Args:
+      psi, nu, nu_u: (N,) float32 state (ψ in frames, ν / ν_u relative
+        frequency offsets).
+      a_t, lam_t: (C, N, N) stack and λeff in the kernels' layout, as
+        :func:`densify` returns them.
+      lat: (C,) class latencies in frames.
+      kp, beta_off, dt_frames: gains and frames per period (numbers; the
+        kernel takes them as arguments, nothing is built per value).
+      ctrl_mask: optional (N,) controller enables (≤ 0.5 = holdover).
+      use_ref: run the plain dense oracle (``ref.bittide_dense_step_ref``).
+      device: where to run; None means the CUDA card.
+
+    The degree and λeff folds are taken from the stacks here, once per
+    call; nothing is padded.  Returns (psi', nu'), (N,) tensors.
+    """
+    dev = resolve_device(device)
+    put = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                    device=dev).contiguous()
+    psi, nu, nu_u, a_t, lam_t, lat = (put(x) for x in (psi, nu, nu_u, a_t,
+                                                        lam_t, lat))
+    mask = None if ctrl_mask is None else put(ctrl_mask)
+    if use_ref:
+        psi2, nu2, _ = bittide_dense_step_ref(
+            psi[None], nu[None], nu_u[None], a_t, lam_t, lat,
+            _gain_row(kp, dev), _gain_row(beta_off, dev), dt_frames,
+            None if mask is None else mask[None])
+        return psi2[0], nu2[0]
+    out = _perstep_engine(psi, nu, nu_u, mask, a_t, a_t.sum(dim=(0, 1)),
+                          lam_t.sum(dim=(0, 1)), lat, float(kp),
+                          float(beta_off), float(dt_frames), 1, 1)
+    return out.psi, out.nu
+
+
+def simulate_dense_perstep(topo: Topology, links: LinkParams, ppm_u,
+                           steps: int, kp: float, dt: float = 1e-3,
+                           beta_off: float = 0.0,
+                           omega_nom: float = OMEGA_NOM,
+                           use_ref: bool = False, *,
+                           device=None) -> DenseResult:
+    """The per-step lane with per-period telemetry: one draw, one kernel
+    launch per control period, every period recorded.  Kept as the
+    benchmark baseline — it reads the whole (C, N, N) stack and round-trips
+    the (N,) state through device memory every period, which is exactly
+    what the fused engine saves.  Returns (freq_ppm (T, N), psi (N,)) with
+    T == steps, ``.engine == "per-step"`` and ``.nu``; ``use_ref`` runs
+    the plain dense oracle instead.
+    """
+    dev = resolve_device(device)
+    a_t, lam_t, lat, n = densify(topo, links, omega_nom, device=dev)
+    ppm = np.asarray(ppm_u, np.float32).reshape(n)
+    nu_u = torch.as_tensor(ppm * np.float32(1e-6), device=dev)
+    psi = torch.zeros_like(nu_u)
+    dt_frames = float(omega_nom * dt)
+    if use_ref:
+        psi_f, nu_f, rec, _ = bittide_dense_multistep_ref(
+            psi[None], nu_u[None], nu_u[None], a_t, lam_t, lat,
+            _gain_row(kp, dev), _gain_row(beta_off, dev), dt_frames, steps,
+            1)
+        freq, psi_f, nu_f = rec[:, 0], psi_f[0], nu_f[0]
+    else:
+        lamsum = torch.as_tensor(_lamsum_host(
+            topo, np.asarray(links.beta0, np.float64)[None], None, 1)[0],
+            device=dev)
+        out = _perstep_engine(psi, nu_u, nu_u, None, a_t,
+                              a_t.sum(dim=(0, 1)), lamsum, lat, float(kp),
+                              float(beta_off), dt_frames, steps, 1)
+        freq, psi_f, nu_f = out.freq, out.psi, out.nu
+    return DenseResult((freq * 1e6).cpu().numpy(), psi_f.cpu().numpy(),
+                       "per-step", 0, nu=nu_f.cpu().numpy())

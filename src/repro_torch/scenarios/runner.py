@@ -37,8 +37,13 @@ Engines:
                   heterogeneous per-draw latencies.  ``auto`` takes it
                   when the regime table, probed with the degree bound,
                   puts the network beyond the dense lanes.
-``per-step``      not ported yet (ROADMAP queue item 9): raises
-                  ``NotImplementedError``.
+``per-step``      the dense lanes' contract on ``bittide_perstep`` (one
+                  draw per launch, one launch per period): the draws of a
+                  chunk launch one after another, each with its own
+                  ``lamsum`` row (no per-draw λeff stack), and when their
+                  guard trips differ the draws that ran past the earliest
+                  trip run again with the stop cap there (the host resync
+                  that stands in for the batch-wide freeze).
 
 λeff semantics (see :mod:`repro_torch.scenarios.events`): a plain
 LatencyStep keeps λeff constant — occupancy is continuous through the
@@ -77,14 +82,14 @@ from repro_torch.core.frame_model import (EB_INIT, LinkParams, SimConfig,
 from repro_torch.core.reframing import (ReframePolicy, edge_occupancy,
                                         node_net_occupancy, shift_assignment)
 from repro_torch.core.topology import Topology
-from repro_torch.kernels.api import EngineOptions
+from repro_torch.kernels.api import EngineOptions, EngineOutputs
 from repro_torch.kernels.bittide_sparse import ellify
 from repro_torch.kernels.bittide_step import (TILE_J, select_engine,
                                               sparse_tile)
 from repro_torch.kernels.ops import (_auto_is_sparse, _fused_engine,
                                      _host_watermarks, _lamsum_host,
-                                     _resolve_mask, _sparse_engine,
-                                     latency_classes)
+                                     _perstep_engine, _resolve_mask,
+                                     _sparse_engine, latency_classes)
 from repro_torch.telemetry import Watermarks, coerce_trace, compile_stats
 from repro_torch.telemetry.api import resolve_telemetry
 
@@ -93,9 +98,7 @@ from .events import Scenario
 
 __all__ = ["AppliedReframe", "ScenarioResult", "run_scenario"]
 
-_DENSE_ENGINES = ("auto", "fused", "tiled")
-# Lanes of the reference this port does not have yet, by ROADMAP item.
-_UNPORTED = {"per-step": "ROADMAP queue item 9 (per-step lane)"}
+_DENSE_ENGINES = ("auto", "fused", "tiled", "per-step")
 
 
 def _guard_band(b: int, target: float, guard_rows, dev):
@@ -427,14 +430,7 @@ def _prep_dense_segment(topo: Topology, links_seg: LinkParams, seg,
     beta0_rows = beta0 if beta0.ndim == 2 else beta0[None]
     a_t = stacks.a_t[seg_index]
     c = a_t.shape[0]
-    if engine == "auto":
-        chosen = select_engine(b, n, c)[0]
-        if chosen not in ("fused", "tiled"):
-            raise NotImplementedError(
-                f"N={n}, C={c} is outside the fused and tiled regimes and "
-                f"the {chosen} lane is not ported yet: {_UNPORTED[chosen]}")
-    else:
-        chosen = engine
+    chosen = select_engine(b, n, c)[0] if engine == "auto" else engine
     lamsum = np.broadcast_to(
         _lamsum_host(topo, beta0_rows, seg.edge_w, beta0_rows.shape[0]),
         (b, n))
@@ -445,13 +441,15 @@ def _prep_dense_segment(topo: Topology, links_seg: LinkParams, seg,
                               (b, c))
     put = lambda x: torch.as_tensor(np.array(x, np.float32, order="C"),
                                     device=dev)
+    kp = broadcast_gain(ctrl.kp, b)
+    beta_off = broadcast_gain(ctrl.beta_off, b, "beta_off")
     return dict(
         a_t=a_t, deg=stacks.deg[seg_index], lamsum=put(lamsum), lat=put(lat),
         mask=put(_resolve_mask(seg.ctrl_mask, b, n)),
-        nu_u=put(ppm2d * np.float32(1e-6)),
-        kp=put(broadcast_gain(ctrl.kp, b)),
-        beta_off=put(broadcast_gain(ctrl.beta_off, b, "beta_off")),
-        engine=chosen, tile_j=min(TILE_J, n) if chosen == "tiled" else n)
+        nu_u=put(ppm2d * np.float32(1e-6)), kp=put(kp),
+        beta_off=put(beta_off), kp_host=kp, beta_off_host=beta_off,
+        engine=chosen,
+        tile_j={"tiled": min(TILE_J, n), "per-step": 0}.get(chosen, n))
 
 
 def _build_sparse_tables(topo: Topology, comp, cfg: SimConfig, dev):
@@ -509,6 +507,57 @@ def _prep_sparse_segment(topo: Topology, links_seg: LinkParams, seg,
         engine="sparse", tile_j=sparse_tile(n))
 
 
+def _perstep_chunk(psi_d, nu_d, prep: dict, dt_frames: float, chunk: int,
+                   record_every: int, record_beta: bool,
+                   record_watermarks: bool, guard_on: bool, policy,
+                   guard_rows, stop: int) -> EngineOutputs:
+    """One chunk of the per-step lane for every draw, as one (B, ...)
+    :class:`EngineOutputs` (``guard_state`` (B, 1) int32).
+
+    The draws launch one after another, each with its own ``lamsum`` row,
+    class latencies, mask row and gains.  The kernel lanes freeze the
+    whole batch at its earliest trip t*; here each draw freezes at its
+    own, so when the trips differ the draws that ran past t* run the chunk
+    again from the same inputs with the stop cap at t* — a draw's records
+    up to the cap do not depend on the cap, so the batch lands exactly at
+    t*.
+    """
+    b = psi_d.shape[0]
+    mask = prep["mask"]
+
+    def launch(bi: int, stop_i: int) -> EngineOutputs:
+        band = (None, None)
+        if guard_on:
+            band = (policy.target - guard_rows[bi],
+                    policy.target + guard_rows[bi])
+        return _perstep_engine(
+            psi_d[bi], nu_d[bi], prep["nu_u"][bi], mask[bi % mask.shape[0]],
+            prep["a_t"], prep["deg"], prep["lamsum"][bi], prep["lat"][bi],
+            float(prep["kp_host"][bi]), float(prep["beta_off_host"][bi]),
+            dt_frames, chunk, record_every, record_beta, record_watermarks,
+            record_guard=guard_on, guard_lo=band[0], guard_hi=band[1],
+            guard_stop=stop_i if guard_on else None)
+
+    rows = [launch(bi, stop) for bi in range(b)]
+    trips = None
+    if guard_on:
+        trips = torch.stack([r.guard_state for r in rows])
+        trips_h = trips.cpu().numpy()
+        tstar = int(trips_h.min())
+        if tstar <= stop:
+            for bi in np.flatnonzero(trips_h > tstar):
+                rows[int(bi)] = launch(int(bi), tstar)
+    stack = lambda xs: torch.stack(list(xs))
+    return EngineOutputs(
+        psi=stack(r.psi for r in rows), nu=stack(r.nu for r in rows),
+        freq=stack(r.freq for r in rows).transpose(0, 1),
+        beta=(stack(r.beta for r in rows).transpose(0, 1) if record_beta
+              else None),
+        watermarks=(tuple(stack(r.watermarks[k] for r in rows)
+                          for k in range(4)) if record_watermarks else None),
+        guard_state=None if trips is None else trips[:, None])
+
+
 def _class_count(comp) -> Optional[int]:
     """The latency class count of the scenario's dense stacks, or None
     when its latencies form no classes."""
@@ -537,8 +586,7 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
       compiled: reuse a previous :func:`compile_scenario` result.
       options: :class:`repro_torch.kernels.EngineOptions` — ``engine``
         ("segment-sum" by default here, a dense lane: "auto" | "fused" |
-        "tiled", or "sparse"; "per-step" raises ``NotImplementedError``)
-        and ``chunk_records`` (records per
+        "tiled" | "per-step", or "sparse") and ``chunk_records`` (records per
         engine call; must divide every segment's record count; default
         the compiler's GCD).
       telemetry: :class:`repro_torch.telemetry.Telemetry` — ``beta``
@@ -565,9 +613,6 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
     beta_explicit = telemetry is not None
     tel = resolve_telemetry(telemetry, "run_scenario")
     engine = opts.engine
-    if engine in _UNPORTED:
-        raise NotImplementedError(
-            f"engine={engine!r} is not ported yet: {_UNPORTED[engine]}")
     dense = engine in _DENSE_ENGINES
     sparse = engine == "sparse"
     if not dense and not sparse and engine != "segment-sum":
@@ -776,7 +821,12 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                                 guard_stop=stop if guard_on else None)
                 with tr.span("chunk", engine=chosen, segment=si,
                              launch=launches, records=int(stop + 1)):
-                    if sparse:
+                    if chosen == "per-step":
+                        out = _perstep_chunk(
+                            psi_d, nu_d, prep, dt_frames, int(chunk),
+                            int(cfg.record_every), rb_dense, rw, guard_on,
+                            policy, guard_rows, stop)
+                    elif sparse:
                         out = _sparse_engine(
                             psi_d, nu_d, prep["nu_u"], prep["kp"],
                             prep["beta_off"], prep["mask"], tables[0],

@@ -26,7 +26,12 @@ ragged bounded_degree_topo(96, 4, 3), the same with K + 2 padded slots,
 per-draw tables with dropped links) in every variant and with the guard,
 at 0.0 error; a draw's bits do not depend on the batch (alone and in a
 batch of 1,024) nor on whether its tables are shared or per-draw; the
-guard freezes the whole batch at the earliest trip.
+guard freezes the whole batch at the earliest trip.  The per-step kernel
+runs ``PERSTEP_PARITY_CASES`` (FC8, FC8 with two classes, the ragged
+torus3d(7) with holdover) in every variant and with the guard, at 0.0
+error; its bits do not depend on how the periods are cut into calls nor
+on the kernel (the fused kernel at B = 1 gives the same bits); after a
+trip or the stop cap its records are frozen.
 """
 import importlib.util
 from pathlib import Path
@@ -370,3 +375,85 @@ def test_sparse_lane_runs_on_the_card(cuda):
                        telemetry=Telemetry(beta=True))
     np.testing.assert_allclose(result.result.freq_ppm, seg.freq_ppm, rtol=0,
                                atol=chip_smoke.LINKDROP_ATOL_PPM)
+
+
+@pytest.mark.parametrize("case", chip_smoke.PERSTEP_PARITY_CASES)
+def test_perstep_kernel_matches_plain_version(cuda, case):
+    """bittide_perstep against its plain version at 0.0 error on
+    ``PERSTEP_PARITY_CASES``, every variant and the guard tripping at a
+    mid record and never; the C loop launches one kernel per period and
+    two per measure pass."""
+    from repro_torch.kernels.bittide_step import (bittide_perstep,
+                                                  bittide_perstep_torch)
+    _, args, mask = chip_smoke.perstep_inputs(case, cuda)
+    kw = dict(num_records=chip_smoke.PERSTEP_RECORDS,
+              record_every=chip_smoke.PERSTEP_EVERY, ctrl_mask=mask)
+    for v in chip_smoke.perstep_variants(args, kw):
+        before = bittide_perstep.launches
+        got = bittide_perstep(*args, **kw, **v)
+        torch.cuda.synchronize()
+        measure = v["record_beta"] or v["record_watermarks"]
+        assert bittide_perstep.launches - before == \
+            kw["num_records"] * (kw["record_every"] + 2 * measure)
+        want = bittide_perstep_torch(*args, **kw, **v)
+        assert torch.equal(got.freq, want.freq)
+        assert torch.equal(got.psi, want.psi)
+        assert torch.equal(got.nu, want.nu)
+        if v["record_beta"]:
+            assert torch.equal(got.beta, want.beta)
+        if v["record_watermarks"]:
+            for g, w in zip(got.watermarks, want.watermarks):
+                assert torch.equal(g, w)
+        if v.get("record_guard"):
+            assert torch.equal(got.guard_state, want.guard_state)
+
+
+def test_perstep_alone_equals_chunk_and_fused(cuda):
+    """A draw's bits on the card do not depend on how its periods are cut
+    into calls (one record per call, threaded, equals one call of all
+    records) nor on the kernel (the fused kernel at B = 1 gives the same
+    bits)."""
+    from repro_torch.kernels.bittide_step import bittide_perstep
+    _, args, mask = chip_smoke.perstep_inputs("fc8_spool", cuda)
+    kw = dict(record_every=5, ctrl_mask=mask, record_beta=True)
+    whole = bittide_perstep(*args, num_records=4, **kw)
+    psi, nu = args[0], args[1]
+    for t in range(4):
+        one = bittide_perstep(psi, nu, *args[2:], num_records=1, **kw)
+        assert torch.equal(one.freq[0], whole.freq[t])
+        assert torch.equal(one.beta[0], whole.beta[t])
+        psi, nu = one.psi.clone(), one.nu.clone()
+    assert torch.equal(psi, whole.psi) and torch.equal(nu, whole.nu)
+    b1 = lambda x: x[None].contiguous()
+    gain = lambda x: torch.tensor([x], dtype=torch.float32, device=cuda)
+    fused = bittide_fused(b1(args[0]), b1(args[1]), b1(args[2]), args[3],
+                          args[4], b1(args[5]), b1(args[6]), gain(args[7]),
+                          gain(args[8]), args[9], num_records=4,
+                          ctrl_mask=b1(mask), record_every=5,
+                          record_beta=True)
+    assert torch.equal(fused.freq[:, 0], whole.freq)
+    assert torch.equal(fused.beta[:, 0], whole.beta)
+
+
+def test_perstep_guard_freezes_on_the_card(cuda):
+    """After the trip (and after the stop cap) the card's launches are
+    no-ops: the frozen records re-emit the trip record's ν with zero β,
+    and the state stays at the freeze."""
+    from repro_torch.kernels.bittide_step import (bittide_perstep,
+                                                  bittide_perstep_torch)
+    _, args, mask = chip_smoke.perstep_inputs("torus3d_7", cuda)
+    kw = dict(num_records=chip_smoke.PERSTEP_RECORDS,
+              record_every=chip_smoke.PERSTEP_EVERY, ctrl_mask=mask)
+    trip_v = chip_smoke.perstep_variants(args, kw)[4]
+    for stop in (kw["num_records"] - 1, 1):
+        v = dict(trip_v, guard_stop=stop)
+        got = bittide_perstep(*args, **kw, **v)
+        want = bittide_perstep_torch(*args, **kw, **v)
+        trip = int(got.guard_state)
+        last = min(trip, stop)
+        assert trip == int(want.guard_state)
+        assert torch.equal(got.freq, want.freq)
+        assert torch.equal(got.freq[last + 1:],
+                           got.nu.expand(kw["num_records"] - last - 1, -1))
+        assert not got.beta[last + 1:].any()
+        assert torch.equal(got.psi, want.psi)

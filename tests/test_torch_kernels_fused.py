@@ -381,12 +381,23 @@ def test_gain_lamsum_and_mask_sweeps_build_nothing_new():
 
 @pytest.mark.parametrize("engine", ["per-step"])
 def test_unported_lanes_raise(engine):
+    """The lanes that raised until their kernel was ported now run (at one
+    draw with the fused lane's bits); an unknown lane name raises."""
     topo = tc.fully_connected(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ppm = np.random.default_rng(0).uniform(-8, 8, (1, 8))
+    kw = dict(record_every=10, device="cpu")
+    res = tk.simulate_ensemble_dense(
+        topo, tc.make_links(topo), ppm, 20, 2e-9,
+        options=tk.EngineOptions(engine=engine), **kw)
+    fused = tk.simulate_ensemble_dense(
+        topo, tc.make_links(topo), ppm, 20, 2e-9,
+        options=tk.EngineOptions(engine="fused"), **kw)
+    assert res.engine == engine
+    np.testing.assert_array_equal(res[0], fused[0])
+    with pytest.raises(ValueError, match="unknown engine"):
         tk.simulate_ensemble_dense(
-            topo, tc.make_links(topo), np.zeros((1, 8)), 10, 2e-9,
-            record_every=10, options=tk.EngineOptions(engine=engine),
-            device="cpu")
+            topo, tc.make_links(topo), ppm, 20, 2e-9,
+            options=tk.EngineOptions(engine=engine + "-x"), **kw)
 
 
 def test_auto_outside_fused_regime_and_per_draw_edge_w_raise():

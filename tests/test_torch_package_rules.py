@@ -37,7 +37,8 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.kernels import build, ops, ref, bittide_step, "
         "bittide_sparse\n"
         "from repro_torch.telemetry import compile_stats, watermarks, trace\n"
-        "from repro_torch.core import envelopes, reframing\n"
+        "from repro_torch.core import envelopes, reframing, ddc, latency, "
+        "schedule, frame_level, network\n"
         "from repro_torch.scenarios import events, compiler, runner, chaos\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
@@ -125,6 +126,22 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
             samplers=(ts.FreqStepSampler(t=0.005),), num_draws=2,
             cfg=tc.SimConfig(steps=10, record_every=10),
             engine="sparse").run(),
+        lambda: tk.simulate_ensemble_dense(
+            topo, links, np.zeros((1, 4)), 10, 2e-9, record_every=10,
+            options=tk.EngineOptions(engine="per-step")),
+        lambda: tk.simulate_dense_perstep(topo, links, np.zeros(4), 10,
+                                          2e-9),
+        lambda: tk.ops.bittide_step(np.zeros(4), np.zeros(4), np.zeros(4),
+                                    np.zeros((1, 4, 4)), np.zeros((1, 4, 4)),
+                                    np.zeros(1), 2e-9, 0.0, 1.0),
+        lambda: ts.run_scenario(topo, links, tc.ControllerConfig(),
+                                np.zeros(4), ts.Scenario(events=()),
+                                tc.SimConfig(steps=10, record_every=10),
+                                options=tk.EngineOptions(engine="per-step")),
+        lambda: tc.BittideNetwork.build(topo),
+        lambda: tc.BittideNetwork(topo, links, np.zeros(4)).run_scenario(
+            ts.Scenario(events=()), cfg=tc.SimConfig(steps=10,
+                                                      record_every=10)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -186,4 +203,20 @@ def test_sparse_wrapper_never_takes_the_plain_version(monkeypatch):
                           g, g, 1.0, num_records=1, record_every=1,
                           record_guard=True, guard_lo=g, guard_hi=g,
                           guard_stop=0)
+    assert not called
+
+
+def test_perstep_wrapper_never_takes_the_plain_version(monkeypatch):
+    """The per-step wrapper, guard variant included: a tensor on a device
+    other than the CPU never reaches the plain version."""
+    from repro_torch.kernels import bittide_step as bs
+    called = []
+    monkeypatch.setattr(bs, "bittide_perstep_torch",
+                        lambda *a, **k: called.append(1))
+    x = torch.zeros(2, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bs.bittide_perstep(x, x, x, torch.zeros(1, 2, 2, device="meta"), x,
+                           x, torch.zeros(1, device="meta"), 1e-9, 0.0, 1.0,
+                           num_records=1, record_every=1, record_guard=True,
+                           guard_lo=-1.0, guard_hi=1.0, guard_stop=0)
     assert not called

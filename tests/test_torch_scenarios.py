@@ -269,9 +269,15 @@ def test_cable_swap_rtt_shift_equals_reference(engine):
 
 @pytest.mark.parametrize("engine", ["per-step"])
 def test_unported_engines_raise(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue item"):
+    """The engines that raised until their kernel was ported now run the
+    scenario (the cable swap, on the reference's λ tables); an unknown
+    engine name raises."""
+    ref, port = _pair(TOPO, LINKS, rc.ControllerConfig(kp=PARITY_KP), PPM,
+                      _swap(), _cfg(), engine)
+    _assert_pair(ref, port)
+    with pytest.raises(ValueError, match="unknown engine"):
         _port(TOPO, LINKS, rc.ControllerConfig(kp=2e-8), PPM, _swap(),
-              _cfg(), engine)
+              _cfg(), engine + "-x")
 
 
 def test_auto_runs_tiled_above_the_fused_regime():

@@ -451,7 +451,7 @@ def test_select_engine_sparse_regime(b, n, c, max_deg, want):
     """The degree bound never reroutes a network a dense lane holds; past
     the tiled budget (N > 131,072 at C = 1) a bounded-degree network goes
     sparse while its tables and state fit, and without the bound (or when
-    they do not fit) to the unported per-step lane."""
+    they do not fit) to the per-step lane."""
     engine, tile = tk.select_engine(b, n, c, max_deg=max_deg)
     assert engine == want
     if engine == "sparse":
