@@ -18,10 +18,14 @@ Phases, one JSON object per line:
               holdover mask, 400 periods recorded every 20, all four
               variants.  Tiled (``TILED_PARITY_CASES``): torus3d(8) at
               B=9 (two draw groups, the second partial) and torus3d(7)
-              (ragged tiles) at B=5, one class and two (the second a
-              single directed edge, so the stack is not symmetric), every
+              (ragged tiles, N % 4 != 0: the 4-byte copies) at B=5, one
+              class and two (the second a single directed edge, so the
+              stack is not symmetric); the ring's edges: torus3d(6) (fewer
+              panels than ring stages) at B=3, and at B=4 with three
+              classes (a class boundary inside the ring), torus3d(8) at
+              B=17 (three draw groups, the last of one draw); every
               variant plus the guard with bands that trip at different
-              records and with bands that never trip.  The fused guard
+              records and with bands that never trip; 0.0 error.  The fused guard
               (``FUSED_GUARD_CASES``) with draws tripping at different
               records, so that the wrapper's replay runs: FC8 at B=64, and
               torus3d(8) at B=9 with two classes (N=512 > 256: 512 threads
@@ -33,8 +37,9 @@ Phases, one JSON object per line:
               tables with a dropped link per draw; every variant and the
               guard tripping at different records and never; 0.0 error.
               Per-step (``PERSTEP_PARITY_CASES``): FC8, FC8 with the
-              1000 m spool (two classes) and the ragged torus3d(7) with a
-              holdover mask, one draw each; every variant and the guard
+              1000 m spool (two classes), the ragged torus3d(7) with a
+              holdover mask, torus3d(6) with one class and with three, one
+              draw each; every variant and the guard
               tripping at a mid record and never; 0.0 error, and the
               launches the C loop made.
 3. fc8      — the main path at users' size: ``simulate_ensemble_dense`` on
@@ -50,10 +55,13 @@ Phases, one JSON object per line:
               on torus3d(22) (10,648 nodes, A = 453.5 MB), B=8 draws in
               ±8 ppm, 2 m cables, kp=2e-8, dt=5e-3, 2,000 periods recorded
               every 100, watermarks; ν against the segment-sum lane, and
-              every draw converged.  A ``torch.matmul`` of the same shapes
-              per pass is timed as a yardstick for the aggregation alone,
-              and the kernel's 16-byte panel copies against its 4-byte ones
-              (the same stack one float past a 16-byte boundary).
+              every draw converged.  The kernel's time per pass, the
+              stack's bytes per pass over it against 3.35 TB/s, and its
+              ring (stages, rows per CTA, sources per panel, CTAs per SM).
+              A ``torch.matmul`` of the same shapes per pass is timed as a
+              yardstick for the aggregation alone, and the kernel's TMA
+              panel copies against its 4-byte ones (the same stack one
+              float past a 16-byte boundary).
 
 Phases 3, 4 and 6 (``run_main_path``) also time the kernel with CUDA events
 on the main path's own inputs, check that one more launch reproduces the
@@ -109,10 +117,12 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               "per-step")`` on phase 6's torus3d(22) (A = 453.5 MB), its
               draws 0 and 1, 2,000 periods recorded every 100,
               watermarks: launches (2 × (2,000 + 2 × 20)), the kernel's
-              time per pass beside the bytes bound, memory, one
+              time per pass beside the bytes bound, the stack's bytes per
+              pass over it against 3.35 TB/s and its ring, memory, one
               ``torch.mv`` per class as the yardstick of one period's
               aggregation, the plain version over 2 records × 2 periods at
-              0.0 error, ν and watermarks against phase 6's tiled rows.
+              0.0 error, ν and watermarks bit-identical to phase 6's tiled
+              rows.
               (b) ``BittideNetwork.run_scenario`` on phase 7's cable swap
               (40,000 periods, its first 16 draws): ν and β against phase
               7's fused rows, the same RTT shift; every engine call held
@@ -210,9 +220,19 @@ def waves_draws(dev) -> int:
 
 # Tiled kernel-vs-plain cases of phase 2 and of the card tests:
 # (topology, draws, latency classes).  Two classes here means one long
-# directed edge 0 → 1, so the stack is not symmetric.
+# directed edge 0 → 1, so the stack is not symmetric; three, a 1000 m edge
+# 0 → 1 and a 500 m edge 1 → 0.  The ring's edges: torus3d(7) has
+# N % 4 != 0 (the 4-byte copies); torus3d(6) has 4 panels, fewer than the
+# ring's stages, and with three classes a class boundary falls inside the
+# ring; B = 17 gives three draw groups, the last of one draw.  Every case
+# runs the guard with bands that trip mid-chunk and that never trip.
 TILED_PARITY_CASES = (("torus3d_8", 9, 1), ("torus3d_8", 9, 2),
-                      ("torus3d_7", 5, 1), ("torus3d_7", 5, 2))
+                      ("torus3d_7", 5, 1), ("torus3d_7", 5, 2),
+                      ("torus3d_6", 3, 1), ("torus3d_6", 4, 3),
+                      ("torus3d_8", 17, 1))
+TILED_PARITY_IDS = ("torus3d_8", "torus3d_8_two_classes", "torus3d_7",
+                    "torus3d_7_two_classes", "torus3d_6_few_panels",
+                    "torus3d_6_three_classes", "torus3d_8_b17")
 TILED_RECORDS, TILED_EVERY = 4, 3
 # The fused guard cases: (case, records, record_every, stop caps).  Each
 # draw's band trips near a record drawn from 1..records-1, so that draws
@@ -237,9 +257,13 @@ SPARSE_PARITY_CASES = (("fully_connected_8", 64, "shared"),
 SPARSE_RECORDS, SPARSE_EVERY = 6, 5
 # Per-step kernel-vs-plain cases of phase 2 and of the card tests: FC8;
 # FC8 with the 1000 m spool on the pair (0, 1) (two latency classes); the
-# ragged torus3d(7) (343 nodes: the last CTA partial) with nodes 0 and
-# N-1 in holdover.  One draw each, with phase 2's per-draw knobs.
-PERSTEP_PARITY_CASES = ("fc8", "fc8_spool", "torus3d_7")
+# ragged torus3d(7) (343 nodes: the last CTA partial, N % 4 != 0: the
+# 4-byte copies) with nodes 0 and N-1 in holdover; torus3d(6) (4 panels,
+# fewer than the ring's stages) with one class and with three (a class
+# boundary inside the ring).  One draw each, with phase 2's per-draw
+# knobs; the guard trips mid-chunk and never.
+PERSTEP_PARITY_CASES = ("fc8", "fc8_spool", "torus3d_7", "torus3d_6",
+                        "torus3d_6_three_classes")
 PERSTEP_RECORDS, PERSTEP_EVERY = 6, 4
 
 
@@ -339,6 +363,17 @@ def one_way_links(topo):
     return make_links(topo, cable_m=cable)
 
 
+def three_class_links(topo):
+    """2 m cables, 1000 m on the directed edge 0 → 1 and 500 m on 1 → 0:
+    three latency classes."""
+    import numpy as np
+    from repro_torch.core import make_links
+    cable = np.full(topo.num_edges, 2.0)
+    cable[(topo.src == 0) & (topo.dst == 1)] = 1000.0
+    cable[(topo.src == 1) & (topo.dst == 0)] = 500.0
+    return make_links(topo, cable_m=cable)
+
+
 def parity_inputs(case, dev, one_way=False):
     """(topology, kernel args ending in Δ = 125,000 frames, per-draw mask)
     of one of ``PARITY_CASES`` / ``TILED_PARITY_CASES``."""
@@ -349,8 +384,10 @@ def parity_inputs(case, dev, one_way=False):
             "torus3d_6": lambda: torus3d(6), "torus3d_7": lambda: torus3d(7),
             "torus3d_8": lambda: torus3d(8)}[name]()
     b = waves_draws(dev) if b == "waves" else b
-    links = ((one_way_links(topo) if one_way else two_class_links(topo))
-             if classes == 2 else make_links(topo, cable_m=2.0))
+    links = {1: lambda: make_links(topo, cable_m=2.0),
+             2: lambda: (one_way_links(topo) if one_way
+                         else two_class_links(topo)),
+             3: lambda: three_class_links(topo)}[classes]()
     ppm = np.random.default_rng(1).uniform(-8, 8, (b, topo.num_nodes))
     args, mask = fused_inputs(topo, links, ppm, 2e-8, dev, seed=2)
     assert args[3].shape[0] == classes, args[3].shape
@@ -494,9 +531,7 @@ def phase_parity(dev):
     import torch
     from repro_torch.kernels.bittide_step import (bittide_fused,
                                                   bittide_fused_torch,
-                                                  bittide_tiled,
-                                                  launch_plan,
-                                                  tiled_launch_plan)
+                                                  launch_plan)
     worst = {k: dict(freq_ppm=0.0, beta_frames=0.0)
              for k in ("bittide_fused", "bittide_tiled", "bittide_sparse",
                        "bittide_step")}
@@ -566,6 +601,20 @@ def phase_parity(dev):
             assert launches == 2 and row["earliest_trip"] < stop, row
             note("bittide_fused", row)
 
+    tiled_parity(dev, note)
+    sparse_parity(dev, note)
+    perstep_parity(dev, note)
+    return worst
+
+
+def tiled_parity(dev, note):
+    """Phase 2's tiled cases: every variant of every case of
+    ``TILED_PARITY_CASES`` against the plain version at 0.0 error, each
+    row passed to ``note``; the guard trips mid-chunk and never."""
+    import torch
+    from repro_torch.kernels.bittide_step import (bittide_fused_torch,
+                                                  bittide_tiled,
+                                                  tiled_launch_plan)
     for case in TILED_PARITY_CASES:
         topo, args, mask = parity_inputs(case, dev, one_way=True)
         b, n = args[0].shape
@@ -583,8 +632,10 @@ def phase_parity(dev):
                                  guard_stop=TILED_RECORDS - 1))
         trip_rows = []
         for v in variants:
+            before = bittide_tiled.launches
             got = bittide_tiled(*args, **kw, **v)
             torch.cuda.synchronize()
+            assert bittide_tiled.launches == before + 1
             want = bittide_fused_torch(*args, **kw, **v)
             valid = TILED_RECORDS
             row = dict(phase="parity", kernel="bittide_tiled",
@@ -592,19 +643,16 @@ def phase_parity(dev):
                        classes=args[3].shape[0], beta=v["record_beta"],
                        watermarks=v["record_watermarks"],
                        guard=v.get("record_guard", False),
-                       launch_plan=tiled_launch_plan(b, n))
+                       launch_plan=tiled_launch_plan(b, n, args[3].shape[0]))
             if row["guard"]:
                 valid = min(int(want.guard_state.min()), TILED_RECORDS) + 1
                 row["earliest_trip"] = int(want.guard_state.min())
                 trip_rows.append(row["earliest_trip"])
-            row.update(kernel_vs_plain(got, want, records=valid))
+            row.update(kernel_vs_plain(got, want, records=valid, exact=True))
             note("bittide_tiled", row)
         # One band set trips inside the chunk, the other never.
         assert trip_rows[0] < TILED_RECORDS - 1 and \
             trip_rows[1] == TILED_RECORDS, trip_rows
-    sparse_parity(dev, note)
-    perstep_parity(dev, note)
-    return worst
 
 
 def sparse_parity(dev, note):
@@ -658,7 +706,9 @@ def perstep_inputs(case, dev):
     import torch
     name, classes = {"fc8": ("fully_connected_8", 1),
                      "fc8_spool": ("fully_connected_8", 2),
-                     "torus3d_7": ("torus3d_7", 1)}[case]
+                     "torus3d_7": ("torus3d_7", 1),
+                     "torus3d_6": ("torus3d_6", 1),
+                     "torus3d_6_three_classes": ("torus3d_6", 3)}[case]
     topo, args, _ = parity_inputs((name, 1, classes), dev)
     n = topo.num_nodes
     psi = torch.as_tensor(np.random.default_rng(3).uniform(-5, 5, n),
@@ -893,11 +943,34 @@ def run_main_path(name, topo, b, kp, dt, steps, rec, tel, dev, engine,
     return out, args, kw, res
 
 
+def ring_report(plan, dplan, stack_bytes, ms_per_pass) -> dict:
+    """How a streaming dense kernel (tiled or per-step) ran: the stack's
+    bytes per pass over the time per pass against PEAK_BYTES_PER_S, and
+    its ring (stages, rows per CTA, sources per panel, CTAs, CTAs resident
+    per SM).  ``plan`` is the Python launch plan, ``dplan`` what the built
+    library reports for the card; they must agree."""
+    for key in ("smem_bytes", "stages", "tile_i", "tile_j"):
+        assert plan[key] == dplan[key], (key, plan, dplan)
+    rate = stack_bytes / (ms_per_pass * 1e-3)
+    ctas = 1
+    for g in plan["grid"]:
+        ctas *= g
+    return dict(stream_bytes_per_pass=stack_bytes,
+                achieved_bytes_per_s=rate,
+                achieved_share_of_peak=rate / PEAK_BYTES_PER_S,
+                ring_stages=plan["stages"], rows_per_cta=plan["tile_i"],
+                sources_per_panel=plan["tile_j"], ctas=ctas,
+                threads_per_cta=plan["threads"],
+                ctas_per_sm=dplan["ctas_per_sm"],
+                smem_bytes_per_cta=plan["smem_bytes"])
+
+
 def run_tiled(dev, k=22, b=8, steps=2_000, rec=100):
     """Phase 6: the tiled lane at Fig-18 size (see the module docstring)."""
     import torch
     from repro_torch.core import torus3d
-    from repro_torch.kernels.bittide_step import bittide_tiled
+    from repro_torch.kernels.bittide_step import (bittide_tiled, device_plan,
+                                                  tiled_launch_plan)
     from repro_torch.telemetry import Telemetry
     out, args, kw, res = run_main_path(
         "tiled", torus3d(k), b, 2e-8, 5e-3, steps, rec,
@@ -907,15 +980,27 @@ def run_tiled(dev, k=22, b=8, steps=2_000, rec=100):
     records = steps // rec
     passes = steps + records
     dt_frames = float(125e6 * out["dt"])
+    c = args[3].shape[0]
+    nnz = float((args[3] != 0).sum())
+    pass_bound = bound(b, n, c, nnz, 1, 0, False, False)
     out.update(kernel_passes=passes,
                kernel_ms_per_pass=out["kernel_ms"] / passes,
                dense_stream_bound_ms=passes * 4 * n * n / PEAK_BYTES_PER_S
-               * 1e3)
+               * 1e3,
+               bound_ms_per_pass=pass_bound[0],
+               bound_by_per_pass=pass_bound[1],
+               plain_passes=2 * 2 + 2,
+               plain_ms_per_pass=out["plain_ms"] / (2 * 2 + 2),
+               **ring_report(tiled_launch_plan(b, n, c),
+                             device_plan("bittide_tiled", min(b, 8)),
+                             out["stack_bytes"],
+                             out["kernel_ms"] / passes))
 
     # Yardstick (not used by the port): one fp32 torch.matmul of the
     # per-pass aggregation's shapes, (B, N) x (N, N), times the passes.
     x = torch.randn(b, n, device=dev)
     mm_ms = cuda_ms(lambda: torch.matmul(x, args[3][0]), 5)
+    out.update(library_ms_per_pass=mm_ms)
     emit(dict(phase="tiled", yardstick="torch.matmul (B,N)x(N,N) fp32 per "
               "pass, not used by the port", matmul_ms_per_pass=mm_ms,
               matmul_ms_all_passes=mm_ms * passes, passes=passes))
@@ -1542,7 +1627,9 @@ def run_perstep(dev, tiled_res, scen, k=22, steps=2_000, rec=100,
     from repro_torch.kernels import (EngineOptions, ops,
                                      simulate_ensemble_dense)
     from repro_torch.kernels.bittide_step import (bittide_perstep,
-                                                  bittide_perstep_torch)
+                                                  bittide_perstep_torch,
+                                                  device_plan,
+                                                  perstep_launch_plan)
     from repro_torch.scenarios import (DriftRamp, LatencyStep, Scenario,
                                        edges_between, runner)
     from repro_torch.telemetry import Telemetry
@@ -1619,8 +1706,14 @@ def run_perstep(dev, tiled_res, scen, k=22, steps=2_000, rec=100,
         freq_err_vs_tiled_ppm=err_tiled,
         bit_identical_to_tiled=bool(np.array_equal(res[0], tiled_freq)),
         watermarks_identical_to_tiled=wm_same,
+        **ring_report(perstep_launch_plan(n, a_t.shape[0]),
+                      device_plan("bittide_step"), 4 * a_t.numel(),
+                      call_ms / passes),
         **summary(res[0], (np.arange(1, records + 1) * rec) * 5e-3))
     emit(out["a"])
+    # A draw's bits are the tiled lane's: ν and every watermark.
+    assert out["a"]["bit_identical_to_tiled"], out["a"]
+    assert out["a"]["watermarks_identical_to_tiled"], out["a"]
     del calls, args, kw, a_t, got, want
 
     # (b) The cable swap through the facade, 40,000 periods, the first 16
@@ -1891,11 +1984,24 @@ def main() -> int:
              max_abs_err=errs["bittide_tiled"]["freq_ppm"],
              max_err_ppm=errs["bittide_tiled"]["freq_ppm"],
              max_beta_err_frames=errs["bittide_tiled"]["beta_frames"],
-             ms=tiled["kernel_ms"], plain_ms=tiled["plain_ms"],
+             ms=tiled["kernel_ms_per_pass"],
+             plain_ms=tiled["plain_ms_per_pass"],
+             bound_ms=tiled["bound_ms_per_pass"],
+             bound_by=tiled["bound_by_per_pass"],
+             library_ms=tiled["library_ms_per_pass"],
+             unit=f"one pass of phase 6's {tiled['topology']} x "
+                  f"{tiled['draws']} draws run; the call's time over its "
+                  "periods and measure passes (the plain version's over "
+                  f"its {tiled['plain_passes']} passes)",
+             ms_per_call=tiled["kernel_ms"],
+             plain_ms_per_call=tiled["plain_ms"],
              plain_work=tiled["plain_work"],
              ms_same_work_as_plain=tiled["kernel_ms_same_work"],
-             bound_ms=tiled["bound_ms"], bound_by=tiled["bound_by"],
-             library_ms=None, library_note=no_library),
+             bound_ms_per_call=tiled["bound_ms"],
+             bound_by_per_call=tiled["bound_by"],
+             library_note="one fp32 torch.matmul (B, N) x (N, N) per pass: "
+                          "the aggregation of one period only, not the "
+                          "update; not used by the port"),
         dict(name="bittide_sparse", route="cuda",
              source="src/repro_torch/kernels/csrc/bittide_sparse.cu",
              replaces="src/repro/kernels/bittide_sparse.py:161 "

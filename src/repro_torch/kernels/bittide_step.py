@@ -14,11 +14,12 @@ and ``lamsum``:
 owns whole draws and loops over every period itself.  ``bittide_tiled``
 (``csrc/bittide_tiled.cu``) replaces ``_tiled_kernel``, the lane for dense
 networks beyond the fused regime: one launch per period (the launch loop
-runs in C), the stack streamed from device memory in panels.
-``bittide_perstep`` (``csrc/bittide_step.cu``) replaces ``_kernel``, the
-reference's per-step lane: one draw, one launch per period (the record
-loop runs in C), one thread per node.  The sources' headers state each
-design and bound.
+runs in C).  ``bittide_perstep`` (``csrc/bittide_step.cu``) replaces
+``_kernel``, the reference's per-step lane: one draw, one launch per
+period (the record loop runs in C).  Both stream the stack from device
+memory through one shared-memory ring (``csrc/bittide_stream.cuh``: TMA
+panels, per-stage mbarriers, x computed once per period); the sources'
+headers state each design and bound.
 
 The kernels sum every (b, i) in one order — classes in order, nodes
 j = 0..N-1 in order, no fused multiply-add — so a draw's bits depend
@@ -62,9 +63,11 @@ from .api import EngineOutputs
 
 __all__ = ["bittide_fused", "bittide_fused_torch", "bittide_perstep",
            "bittide_perstep_torch", "bittide_tiled",
-           "bittide_tiled_torch", "select_engine", "draws_per_cta",
-           "launch_plan", "tiled_launch_plan", "FUSED_N_MAX", "KERNEL_N_MAX",
-           "MAX_CLASSES", "SPARSE_TILE", "TILE_I", "TILE_J",
+           "bittide_tiled_torch", "select_engine", "device_plan",
+           "draws_per_cta", "launch_plan", "perstep_launch_plan",
+           "tiled_launch_plan",
+           "FUSED_N_MAX", "KERNEL_N_MAX", "MAX_CLASSES", "PERSTEP_TILE_J",
+           "RING_STAGES", "SPARSE_TILE", "TILE_I", "TILE_J",
            "TILED_STACK_BYTES_MAX", "VARIANTS_USED", "sparse_bytes",
            "sparse_tile"]
 
@@ -88,8 +91,10 @@ FUSED_N_MAX = 256
 KERNEL_N_MAX = 1024
 MAX_CLASSES = 8            # latency classes the fused kernel keeps in registers
 THREADS_PER_CTA = 128      # target CTA size for small networks
-TILE_I = 32                # tiled kernel: destination rows per CTA
+TILE_I = 32                # tiled / per-step: destination rows per CTA
 TILE_J = 64                # tiled kernel: source nodes per panel
+PERSTEP_TILE_J = 32        # per-step kernel: source nodes per panel
+RING_STAGES = 4            # tiled / per-step: panels in the shared-memory ring
 TILED_GROUP_MAX = 8        # tiled kernel: draws per CTA
 TILED_DRAWS_PER_WARP = 4   # tiled kernel: accumulators per thread
 TILED_STACK_BYTES_MAX = 64 * 2**30
@@ -144,7 +149,12 @@ def draws_per_cta(b: int, n: int, num_sms: int) -> int:
 
 def _library(name: str) -> ctypes.CDLL:
     """A built kernel library with its C signatures declared."""
-    lib = build.load(name)
+    return _declare(name, build.load(name))
+
+
+def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, the library of ``csrc/<name>.cu``, with its C signatures
+    declared."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "bittide_fused":
         lib.bittide_fused_launch.restype = ci
@@ -157,11 +167,15 @@ def _library(name: str) -> ctypes.CDLL:
         lib.bittide_step_launch.restype = ci
         lib.bittide_step_launch.argtypes = (
             [vp] * 6 + [cf] * 3 + [ci] * 5 + [vp] * 8 + [cf] * 2
-            + [vp] * 3)
+            + [vp] * 4)
+        lib.bittide_step_plan.restype = ci
+        lib.bittide_step_plan.argtypes = [vp]
     elif name == "bittide_tiled":
         lib.bittide_tiled_launch.restype = ci
         lib.bittide_tiled_launch.argtypes = (
-            [vp] * 5 + [ci] + [vp] * 3 + [cf] + [ci] * 7 + [vp] * 14)
+            [vp] * 5 + [ci] + [vp] * 3 + [cf] + [ci] * 7 + [vp] * 15)
+        lib.bittide_tiled_plan.restype = ci
+        lib.bittide_tiled_plan.argtypes = [ci, vp]
     else:
         cll = ctypes.c_longlong
         lib.bittide_sparse_launch.restype = ci
@@ -189,15 +203,64 @@ def launch_plan(b: int, n: int, c: int, device, guard: bool = False) -> dict:
                 a_in_smem=a_in_smem)
 
 
-def tiled_launch_plan(b: int, n: int) -> dict:
-    """How the tiled kernel is launched for B draws of N nodes: CTAs of
-    TILE_I destination rows × up to TILED_GROUP_MAX draws (one warp per
-    TILED_DRAWS_PER_WARP draws), panels of TILE_J source nodes, one launch
-    per period and two per measure pass."""
+def _ring_smem_bytes(width: int, tile_j: int) -> int:
+    """Dynamic shared memory of the tiled / per-step ring of panels of
+    ``tile_j`` sources × TILE_I rows whose x panels hold ``width`` draws:
+    RING_STAGES × (A panel + x panel + 2 mbarriers);
+    csrc/bittide_stream.cuh::smem_bytes."""
+    return RING_STAGES * (4 * tile_j * (TILE_I + width) + 16)
+
+
+def _x_floats(groups: int, n: int, c: int, width: int, tile_j: int) -> int:
+    """Floats of the x ping-pong scratch: two slots of (groups, C, NP,
+    width), NP = N rounded up to ``tile_j``."""
+    return 2 * groups * c * (-(-n // tile_j) * tile_j) * width
+
+
+def tiled_launch_plan(b: int, n: int, c: int = 1) -> dict:
+    """How the tiled kernel is launched for B draws of N nodes and C
+    classes: CTAs of TILE_I destination rows × up to TILED_GROUP_MAX draws
+    (one consumer warp per TILED_DRAWS_PER_WARP draws and one producer
+    warp), a ring of RING_STAGES panels of TILE_J source nodes in dynamic
+    shared memory, the x scratch, one launch per period and two per
+    measure pass."""
     g = min(TILED_GROUP_MAX, b)
-    return dict(draws_per_cta=g, grid=(-(-n // TILE_I), -(-b // g)),
-                threads=TILE_I * -(-g // TILED_DRAWS_PER_WARP),
-                tile_i=TILE_I, tile_j=TILE_J, panels=-(-n // TILE_J))
+    groups = -(-b // TILED_GROUP_MAX)
+    return dict(draws_per_cta=g, grid=(-(-n // TILE_I), groups),
+                threads=32 * (TILE_I // 32 * -(-g // TILED_DRAWS_PER_WARP)
+                              + 1),
+                tile_i=TILE_I, tile_j=TILE_J, panels=-(-n // TILE_J),
+                stages=RING_STAGES,
+                smem_bytes=_ring_smem_bytes(TILED_GROUP_MAX, TILE_J),
+                x_floats=_x_floats(groups, n, c, TILED_GROUP_MAX, TILE_J))
+
+
+def perstep_launch_plan(n: int, c: int = 1) -> dict:
+    """How the per-step kernel is launched for one draw of N nodes and C
+    classes: CTAs of TILE_I destination rows (one consumer warp and one
+    producer warp), the ring of RING_STAGES panels of PERSTEP_TILE_J
+    sources, the x scratch."""
+    return dict(grid=(-(-n // TILE_I),), threads=32 * (TILE_I // 32 + 1),
+                tile_i=TILE_I,
+                tile_j=PERSTEP_TILE_J, panels=-(-n // PERSTEP_TILE_J),
+                stages=RING_STAGES,
+                smem_bytes=_ring_smem_bytes(1, PERSTEP_TILE_J),
+                x_floats=_x_floats(1, n, c, 1, PERSTEP_TILE_J))
+
+
+def device_plan(kernel: str, draws_per_cta: int = 1) -> dict:
+    """What the built ``bittide_tiled`` or ``bittide_step`` library reports
+    for its launch on the current card: dynamic shared memory, CTAs
+    resident per SM (the occupancy calculator), ring stages, rows per CTA,
+    sources per panel."""
+    out = (ctypes.c_int * 5)()
+    lib = _library(kernel)
+    rc = (lib.bittide_tiled_plan(draws_per_cta, out) if kernel ==
+          "bittide_tiled" else lib.bittide_step_plan(out))
+    if rc != 0:
+        raise RuntimeError(f"{kernel} plan query failed with CUDA error {rc}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "stages", "tile_i",
+                     "tile_j"), list(out)))
 
 
 def _check(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off, ctrl_mask,
@@ -404,7 +467,9 @@ def bittide_tiled(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
     b, n = psi.shape
     c = a_t.shape[0]
     dev = psi.device
-    g = tiled_launch_plan(b, n)["draws_per_cta"]
+    plan = tiled_launch_plan(b, n, c)
+    g = plan["draws_per_cta"]
+    x_buf = torch.empty(plan["x_floats"], dtype=torch.float32, device=dev)
     mask = (torch.ones((1, n), dtype=torch.float32, device=dev)
             if ctrl_mask is None else ctrl_mask)
     psi_buf = torch.empty((2, b, n), dtype=torch.float32, device=dev)
@@ -427,7 +492,7 @@ def bittide_tiled(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
         b, n, c, num_records, record_every, last, g, _ptr(psi_buf),
         _ptr(nu_buf), _ptr(freq), _ptr(beta),
         *(_ptr(x) for x in (wm if wm else (None,) * 4)), _ptr(guard_lo),
-        _ptr(guard_hi), _ptr(trip), _ptr(trip_min), _ptr(mean),
+        _ptr(guard_hi), _ptr(trip), _ptr(trip_min), _ptr(mean), _ptr(x_buf),
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bittide_tiled launch failed with CUDA error {rc} "
@@ -519,6 +584,8 @@ def bittide_perstep(psi, nu, nu_u, a_t, deg, lamsum, lat, kp: float,
     trip = (torch.full((), num_records, dtype=torch.int32, device=dev)
             if record_guard else None)
     mean = torch.empty(1, dtype=torch.float32, device=dev)
+    x_buf = torch.empty(perstep_launch_plan(n, c)["x_floats"],
+                        dtype=torch.float32, device=dev)
     measure = record_beta or record_watermarks or record_guard
     last = (min(num_records - 1, int(guard_stop)) if record_guard
             else num_records - 1)
@@ -530,7 +597,7 @@ def bittide_perstep(psi, nu, nu_u, a_t, deg, lamsum, lat, kp: float,
         *(_ptr(x) for x in (wm if wm else (None,) * 4)),
         float(guard_lo) if record_guard else 0.0,
         float(guard_hi) if record_guard else 0.0, _ptr(trip), _ptr(mean),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(x_buf), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bittide_step launch failed with CUDA error {rc} "
                            f"(N={n}, C={c})")

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with
 a plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds.  Libraries go to ``build/kernels/`` at the repository
-root (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is loaded as
-is.  Nothing is built at import: the first launch builds.
+root (listed in ``.gitignore``), named by a hash of the source, of every
+header in ``csrc/`` and of the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as is.  Nothing is built at
+import: the first launch builds.
 
 Counts (read by :mod:`repro_torch.telemetry.compile_stats`):
 ``BUILD_COUNT["nvcc"]`` — libraries compiled in this process;
@@ -49,10 +50,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` lives for this source."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives for this source, the
+    headers in ``csrc/`` (any of them may be included) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

@@ -14,25 +14,40 @@
 // with the nu record at every record point and the optional measure pass
 // (beta with psi centred by its row mean, watermarks, reframing guard).
 //
+// Bound.  Every pass reads the whole stack, C*N^2*4 bytes (453.5 MB at
+// torus3d(22), C = 1), far above the 50 MB L2, against 2*C*N^2*B
+// multiply-adds: memory-bound, at least 0.135 ms per pass at 3.35 TB/s.
+// To stream at that rate the card needs about 3.4 MB of loads in flight
+// (some 25 KB per SM), and the multiply-adds (a separate _rn multiply and
+// add each, 2*C*N^2*B/32 warp instructions) must issue under the stream.
+//
 // Design.  The TPU kernel runs its grid (record, period, j panel) in
 // order and carries the state in VMEM scratch; CTAs on the H100 run in
 // no order and carry nothing.  So one period is one launch (the launch
 // loop is written here in C, all launches on the caller's stream with no
 // sync), and the state lives in device memory as a ping-pong pair: a
-// period reads buffer `cur` and writes buffer `1 - cur`, so it only ever
-// reads the state from before that period.  A CTA owns TI = 32
-// destination rows i (the lanes) for a group of up to kMaxGroup draws,
-// kDrawsPerWarp draws per warp, each thread keeping one accumulator per
-// draw; it streams the (C, N, TI) column block of the stack that its rows
-// need in panels of TJ source nodes, so each A tile is read once per pass
-// for every draw of the group and each shared-memory read of A feeds
-// kDrawsPerWarp multiply-adds.  Panels are double-buffered with cp.async:
-// the copy of panel q+1 (A tile, psi and nu of the group's draws) is in
-// flight while panel q is summed.  The stack is passed source-major
-// (at[(c*N + j)*N + i] = A[c][i][j]) so a panel row is TI consecutive
-// floats.  A record's measure pass is two more launches: the row mean of
-// psi (summed j = 0..N-1 in order) and the aggregation of the centred
-// state.
+// period reads buffer `cur` and writes buffer `1 - cur`.  A CTA owns
+// kTileI = 32 destination rows (the lanes) for a group of up to kMaxGroup
+// draws: kDrawsPerWarp draws per consumer warp, one accumulator per draw
+// in each thread, so each shared-memory read of A feeds four
+// multiply-adds and one 16-byte read gives x of the warp's four draws.
+// The column block of the stack its rows need streams through the ring of
+// bittide_stream.cuh: kStages = 4 panels of kTileJ = 64 sources x 32 rows
+// (8 KB of A and 2 KB of x each, 41 KB of shared memory) per CTA, filled
+// by one producer warp with a TMA copy per panel and drained by the
+// consumers on per-stage mbarriers.  At torus3d(22) x 8 draws that is 333
+// CTAs of 96 threads, two or three per SM (five would fit), so 64-96 KB
+// of A can be in flight per SM.  The depth and panel height are the
+// fastest of scripts/torch_ring_sweep.py's sweep on the H100 (PERF.md):
+// deeper rings, other panels and 64 rows per CTA streamed no faster.
+// x_c = psi - nu * lat_c is computed once per period: the epilogue of
+// the period that produced psi' and nu' writes x' of its rows into a
+// (groups, C, NP, 8) ping-pong array, and the next period streams it
+// beside A; the first period of a call computes it from the state in the
+// producer warp, and the row-mean launch of a measure pass writes the
+// centred x.  A stack that TMA cannot address (N % 4 != 0, or a start
+// that is not 16-byte aligned) is copied 4 bytes at a time by the
+// producer lanes with cp.async into the same ring, with the same bits.
 //
 // Numbers.  float32 with explicit round-to-nearest intrinsics and one
 // accumulator per (b, i) summed over classes in order and j = 0..N-1 in
@@ -42,28 +57,25 @@
 //
 // Guard.  One device-resident int, *trip_min, holds the batch's earliest
 // trip record (num_records when none).  Every launch of record t reads it
-// first and, when it is below t, does nothing but carry the state across
-// the ping-pong pair; launches on one stream run in order, so the
-// batch-wide freeze is exact with no host sync.  The host issues no
-// launch past guard_stop.
-//
-// Bound.  The work is memory-bound: every pass reads the whole stack,
-// C*N^2*4 bytes (453.5 MB at torus3d(22), C = 1), against 2*C*N^2*B
-// multiply-adds; at 3.35 TB/s a pass costs at least 0.135 ms there.  The
-// stack (4*C*N^2 bytes) must fit in device memory beside the state.
+// first and, when it is below t, does nothing but carry the state (psi,
+// nu and x) across the ping-pong pair; launches on one stream run in
+// order, so the batch-wide freeze is exact with no host sync.  The host
+// issues no launch past guard_stop.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "bittide_stream.cuh"
 
 namespace {
 
-constexpr int kTileI = 32;         // destination rows per CTA (the lanes)
-constexpr int kTileJ = 64;         // source nodes per shared-memory panel
-constexpr int kMaxGroup = 8;       // draws per CTA
+using namespace bittide_stream;
+
+constexpr int kTileI = 32;         // destination rows per CTA
+constexpr int kTileJ = 64;         // sources per panel
+constexpr int kStages = 4;         // panels in the ring
+constexpr int kMaxGroup = 8;       // draws per CTA (the x panel's width)
 constexpr int kDrawsPerWarp = 4;   // accumulators per thread
 
-struct Params {
+struct alignas(64) Params {
+  CUtensorMap map;        // the stack as (C*N, N) when tma
   const float* at;        // (C, N, N) source-major
   const float* nu_u;      // (B, N)
   const float* kp;        // (B,)
@@ -74,8 +86,10 @@ struct Params {
   const float* lat;       // (B, C)
   const float* psi_in;    // (B, N) state before the pass
   const float* nu_in;
+  const float* x_in;      // (groups, C, NP, 8) x of that state, or null
   float* psi_out;         // (B, N) state after a period pass
   float* nu_out;
+  float* x_out;           // x of the state after a period pass
   float* freq_t;          // (B, N) nu record of this record, or null
   float* beta_t;          // (B, N) beta record of this record, or null
   float* wm_bmax;         // (B, N) watermarks, or null
@@ -88,145 +102,67 @@ struct Params {
   int* trip;              // (B,) first trip record, or null
   int* trip_min;          // earliest trip record of the batch, or null
   float dt_frames;
-  int B, N, C, mask_rows, t;
+  int B, N, C, NP, mask_rows, t;
+  bool tma;
 };
 
-// Asynchronous global -> shared copies (sm_80+).  With src_bytes == 0 the
-// destination is zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
+// x' of one draw's node i for every class, into its group's x array.
+__device__ __forceinline__ void write_x(const Params& p, float* x, int b,
+                                        int i, float psi, float nu) {
+  for (int c = 0; c < p.C; ++c)
+    x[((size_t)c * p.NP + i) * kMaxGroup + b % kMaxGroup] =
+        __fsub_rn(psi, __fmul_rn(nu, p.lat[(size_t)b * p.C + c]));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-struct Panel {
-  float a[kTileJ * kTileI];      // at rows j0..j0+tj, columns i0..i0+TI
-  float psi[kMaxGroup * kTileJ]; // psi of the group's draws, nodes j0..
-  float nu[kMaxGroup * kTileJ];
-};
 
 // One period (kMeasure = false) or one record's measure pass (true).
 template <bool kMeasure>
-__global__ void bittide_tiled_pass(const Params p) {
-  __shared__ __align__(16) Panel s_panel[2];
-  __shared__ float s_x[kMaxGroup * kTileJ];  // x of the group's draws
-  const int N = p.N, B = p.B, C = p.C;
+__global__ void __launch_bounds__(
+    32 * (kTileI / 32 * (kMaxGroup / kDrawsPerWarp) + 1))
+bittide_tiled_pass(const __grid_constant__ Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = p.N, B = p.B;
   const int lane = threadIdx.x, w = threadIdx.y;
-  const int tid = w * kTileI + lane, nthreads = blockDim.y * kTileI;
+  const int consumers = blockDim.y - 1;      // the last warp produces
   const int i0 = blockIdx.x * kTileI;
   const int b0 = blockIdx.y * kMaxGroup;
   const int G = min(kMaxGroup, B - b0);      // draws of this group
-  const int i = i0 + lane;
-  const int ii = i < N ? i : 0;              // lanes past N compute on
-                                             // node 0 and write nothing
-  const int g0 = w * kDrawsPerWarp;          // this warp's first draw
+  // Consumer warp w sums rows 32 * (w % kWarpRows) + lane for draws
+  // g0..g0 + kDrawsPerWarp - 1.
+  constexpr int kWarpRows = kTileI / 32;
+  const int cta_row = 32 * (w % kWarpRows) + lane;
+  const int i = i0 + cta_row;
+  const int g0 = w / kWarpRows * kDrawsPerWarp;
+  const size_t xg = (size_t)blockIdx.y * p.C * p.NP * kMaxGroup;
 
   if (p.trip_min != nullptr && *p.trip_min < p.t) {
     // Frozen by an earlier trip: carry the state to the other buffer.
-    if (!kMeasure && i < N) {
+    if (!kMeasure && w < consumers && i < N) {
       for (int k = 0; k < kDrawsPerWarp && g0 + k < G; ++k) {
-        const size_t row = (size_t)(b0 + g0 + k) * N + i;
-        p.psi_out[row] = p.psi_in[row];
-        p.nu_out[row] = p.nu_in[row];
+        const int b = b0 + g0 + k;
+        const size_t row = (size_t)b * N + i;
+        const float psi = p.psi_in[row], nu = p.nu_in[row];
+        p.psi_out[row] = psi;
+        p.nu_out[row] = nu;
+        write_x(p, p.x_out + xg, b, i, psi, nu);
       }
     }
     return;
   }
 
-  const int panels = (N + kTileJ - 1) / kTileJ;
-  const int steps = C * panels;
-  // A rows can be copied 16 bytes at a time when every row starts on a
-  // 16-byte boundary: the stack's start is aligned, N is a multiple of 4
-  // and i0 one of 32.
-  const bool vec4 =
-      (N % 4) == 0 && (reinterpret_cast<uintptr_t>(p.at) & 15) == 0;
-
-  auto issue = [&](int q, Panel& dst) {
-    const int c = q / panels, j0 = (q - c * panels) * kTileJ;
-    const int tj = min(kTileJ, N - j0);
-    const float* src = p.at + ((size_t)c * N + j0) * N + i0;
-    if (vec4) {
-      for (int k = tid; k < tj * (kTileI / 4); k += nthreads) {
-        const int jj = k / (kTileI / 4), col = (k - jj * (kTileI / 4)) * 4;
-        const bool in = i0 + col < N;
-        cp_async16(dst.a + jj * kTileI + col,
-                   in ? src + (size_t)jj * N + col : p.at, in ? 16 : 0);
-      }
-    } else {
-      for (int k = tid; k < tj * kTileI; k += nthreads) {
-        const int jj = k / kTileI, col = k - jj * kTileI;
-        const bool in = i0 + col < N;
-        cp_async4(dst.a + k, in ? src + (size_t)jj * N + col : p.at,
-                  in ? 4 : 0);
-      }
-    }
-    for (int k = tid; k < G * tj; k += nthreads) {
-      const int gg = k / tj, jj = k - gg * tj;
-      const size_t at = (size_t)(b0 + gg) * N + j0 + jj;
-      cp_async4(dst.psi + gg * kTileJ + jj, p.psi_in + at, 4);
-      cp_async4(dst.nu + gg * kTileJ + jj, p.nu_in + at, 4);
-    }
-    cp_async_commit();
-  };
-
-  float part[kDrawsPerWarp], acc[kDrawsPerWarp];
-#pragma unroll
-  for (int k = 0; k < kDrawsPerWarp; ++k) acc[k] = 0.f;
-  issue(0, s_panel[0]);
-  for (int q = 0; q < steps; ++q) {
-    const Panel& cur = s_panel[q & 1];
-    if (q + 1 < steps) issue(q + 1, s_panel[(q + 1) & 1]);
-    else cp_async_commit();                  // keep the group count
-    cp_async_wait_one();                     // panel q has landed
-    __syncthreads();
-    const int c = q / panels, pidx = q - c * panels;
-    const int tj = min(kTileJ, N - pidx * kTileJ);
-    if (pidx == 0) {
-#pragma unroll
-      for (int k = 0; k < kDrawsPerWarp; ++k) part[k] = 0.f;
-    }
-    // x = psi - nu * lat_c (psi centred by its row mean in the measure
-    // pass), once per (draw, node) of the panel.
-    for (int k = tid; k < G * tj; k += nthreads) {
-      const int gg = k / tj, jj = k - gg * tj;
-      const int b = b0 + gg;
-      const float lat = p.lat[(size_t)b * C + c];
-      const float ps = kMeasure
-          ? __fsub_rn(cur.psi[gg * kTileJ + jj], p.mean[b])
-          : cur.psi[gg * kTileJ + jj];
-      s_x[gg * kTileJ + jj] =
-          __fsub_rn(ps, __fmul_rn(cur.nu[gg * kTileJ + jj], lat));
-    }
-    __syncthreads();
-    for (int jj = 0; jj < tj; ++jj) {
-      const float a = cur.a[jj * kTileI + lane];
-#pragma unroll
-      for (int k = 0; k < kDrawsPerWarp; ++k)
-        part[k] = __fadd_rn(part[k],
-                            __fmul_rn(a, s_x[(g0 + k) * kTileJ + jj]));
-    }
-    if (pidx == panels - 1) {
-#pragma unroll
-      for (int k = 0; k < kDrawsPerWarp; ++k) acc[k] = __fadd_rn(acc[k], part[k]);
-    }
-    __syncthreads();   // panel q and s_x are read before they are refilled
+  const Source src{p.at, p.x_in == nullptr ? nullptr : p.x_in + xg,
+                   p.psi_in + (size_t)b0 * N, p.nu_in + (size_t)b0 * N,
+                   p.lat + (size_t)b0 * p.C, G, i0, N, p.C, p.NP, p.tma};
+  Ring<kMaxGroup, kTileI, kTileJ, kStages> ring(smem);
+  ring.init(src, consumers);
+  if (w == consumers) {
+    ring.produce(&p.map, src, lane);
+    return;
   }
+  float acc[kDrawsPerWarp];
+  ring.consume<kDrawsPerWarp>(N, p.C, cta_row, g0, acc);
 
   if (i >= N) return;
-  const float deg = p.deg[ii];
+  const float deg = p.deg[i];
 #pragma unroll
   for (int k = 0; k < kDrawsPerWarp; ++k) {
     const int g = g0 + k;
@@ -247,8 +183,10 @@ __global__ void bittide_tiled_pass(const Params p) {
       const bool enabled =
           p.mask[(p.mask_rows == 1 ? (size_t)0 : (size_t)b * N) + i] > 0.5f;
       if (!enabled) nu_next = nu;
-      p.psi_out[row] = __fadd_rn(psi, __fmul_rn(nu_next, p.dt_frames));
+      const float psi_next = __fadd_rn(psi, __fmul_rn(nu_next, p.dt_frames));
+      p.psi_out[row] = psi_next;
       p.nu_out[row] = nu_next;
+      write_x(p, p.x_out + xg, b, i, psi_next, nu_next);
       if (p.freq_t != nullptr) p.freq_t[row] = nu_next;
       continue;
     }
@@ -285,29 +223,57 @@ __global__ void bittide_tiled_pass(const Params p) {
   }
 }
 
-// Row mean of psi per draw, summed j = 0..N-1 in order (the fused
-// kernel's order) and divided by the true quotient.
-__global__ void bittide_row_mean(const float* psi, int B, int N, float* mean,
-                                 const int* trip_min, int t) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B || (trip_min != nullptr && *trip_min < t)) return;
-  const float* r = psi + (size_t)b * N;
-  float sum = 0.f;
-#pragma unroll 8
-  for (int j = 0; j < N; ++j) sum = __fadd_rn(sum, r[j]);
-  mean[b] = __fdiv_rn(sum, (float)N);
+// One CTA per draw: the row mean of psi (summed j = 0..N-1 in order, the
+// fused kernel's order, divided by the true quotient) and the centred x
+// of the measure pass.
+__global__ void __launch_bounds__(kMeanThreads)
+bittide_row_mean(const float* psi, const float* nu, const float* lat, int N,
+                 int C, int NP, float* mean, float* x, const int* trip_min,
+                 int t) {
+  const int b = blockIdx.x;
+  if (trip_min != nullptr && *trip_min < t) return;
+  row_mean_and_x(psi + (size_t)b * N, nu + (size_t)b * N,
+                 lat + (size_t)b * C, N, C, NP, kMaxGroup, mean + b,
+                 x + (size_t)(b / kMaxGroup) * C * NP * kMaxGroup +
+                     b % kMaxGroup);
 }
 
 }  // namespace
 
 
+// Launch geometry for draws_per_cta draws per CTA: out = {dynamic shared
+// memory bytes, CTAs resident per SM, ring stages, rows per CTA, sources
+// per panel}.  Returns a CUDA error code.
+extern "C" int bittide_tiled_plan(int draws_per_cta, int* out) {
+  const int smem = smem_bytes(kMaxGroup, kTileI, kTileJ, kStages);
+  const int threads = 32 * (kTileI / 32 *
+                            ((draws_per_cta + kDrawsPerWarp - 1) /
+                             kDrawsPerWarp) + 1);
+  cudaError_t e = cudaFuncSetAttribute(
+      bittide_tiled_pass<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &ctas, bittide_tiled_pass<false>, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = smem;
+  out[1] = ctas;
+  out[2] = kStages;
+  out[3] = kTileI;
+  out[4] = kTileJ;
+  return 0;
+}
+
 // Plain C entry point (loaded with ctypes).  Runs records 0..last_record
 // of num_records x record_every periods, plus a measure pass per record
 // when beta, wm_bmax or trip is given.  psi_buf / nu_buf are (2, B, N)
 // ping-pong pairs whose slot 0 holds the initial state; after the call the
-// state is in slot (launched periods) % 2.  trip / trip_min must hold the
-// sentinel num_records on entry.  Returns the first CUDA error of a launch
-// (0 when every launch was accepted); nothing here synchronizes.
+// state is in slot (launched periods) % 2.  x_buf is scratch of
+// 2 * groups * C * NP * 8 floats (groups = ceil(B / 8), NP = N rounded up
+// to 64).  trip / trip_min must hold the sentinel num_records on entry.
+// Returns the first CUDA error of a launch (0 when every launch was
+// accepted); nothing here synchronizes.
 extern "C" int bittide_tiled_launch(
     const float* at, const float* nu_u, const float* kp,
     const float* beta_off, const float* mask, int mask_rows,
@@ -316,22 +282,54 @@ extern "C" int bittide_tiled_launch(
     int draws_per_cta, float* psi_buf, float* nu_buf, float* freq,
     float* beta, float* wm_bmax, int* wm_idx, float* wm_lo, float* wm_hi,
     const float* guard_lo, const float* guard_hi, int* trip, int* trip_min,
-    float* mean, void* stream) {
+    float* mean, float* x_buf, void* stream) {
   if (C < 1 || N < 1 || B < 1 || draws_per_cta != min(B, kMaxGroup))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const bool measure = beta != nullptr || wm_bmax != nullptr ||
                        trip != nullptr;
+  const int groups = (B + kMaxGroup - 1) / kMaxGroup;
   const size_t bn = (size_t)B * N;
-  const dim3 grid((N + kTileI - 1) / kTileI,
-                  (B + kMaxGroup - 1) / kMaxGroup);
-  const dim3 block(kTileI,
-                   (draws_per_cta + kDrawsPerWarp - 1) / kDrawsPerWarp);
-  Params p{at, nu_u, kp, beta_off, mask, deg, lamsum, lat,
-           nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-           nullptr, nullptr, nullptr, nullptr, mean, guard_lo, guard_hi,
-           trip, trip_min, dt_frames, B, N, C, mask_rows, 0};
+  const size_t xn = x_slot_floats(groups, C, N, kMaxGroup, kTileJ);
+  const int smem = smem_bytes(kMaxGroup, kTileI, kTileJ, kStages);
+  const dim3 grid((N + kTileI - 1) / kTileI, groups);
+  const dim3 block(32, kTileI / 32 *
+                           ((draws_per_cta + kDrawsPerWarp - 1) /
+                            kDrawsPerWarp) + 1);
+  const void* kernels[] = {(const void*)bittide_tiled_pass<false>,
+                           (const void*)bittide_tiled_pass<true>};
+  for (const void* kernel : kernels) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  Params p{};
+  p.tma = stack_tma_ok(at, N);
+  if (p.tma) {
+    const int e = encode_stack_map(&p.map, at, N, C, kTileI, kTileJ);
+    if (e != 0) return e;
+  }
+  p.at = at;
+  p.nu_u = nu_u;
+  p.kp = kp;
+  p.beta_off = beta_off;
+  p.mask = mask;
+  p.deg = deg;
+  p.lamsum = lamsum;
+  p.lat = lat;
+  p.mean = mean;
+  p.guard_lo = guard_lo;
+  p.guard_hi = guard_hi;
+  p.trip = trip;
+  p.trip_min = trip_min;
+  p.dt_frames = dt_frames;
+  p.B = B;
+  p.N = N;
+  p.C = C;
+  p.NP = padded_nodes(N, kTileJ);
+  p.mask_rows = mask_rows;
   int cur = 0;
+  bool first = true;
   const int t_end = min(num_records, last_record + 1);
   for (int t = 0; t < t_end; ++t) {
     p.t = t;
@@ -340,26 +338,32 @@ extern "C" int bittide_tiled_launch(
     for (int s = 0; s < record_every; ++s) {
       p.psi_in = psi_buf + cur * bn;
       p.nu_in = nu_buf + cur * bn;
+      p.x_in = first ? nullptr : x_buf + cur * xn;
       p.psi_out = psi_buf + (1 - cur) * bn;
       p.nu_out = nu_buf + (1 - cur) * bn;
+      p.x_out = x_buf + (1 - cur) * xn;
       p.freq_t = s == record_every - 1 ? freq + t * bn : nullptr;
-      bittide_tiled_pass<false><<<grid, block, 0, st>>>(p);
+      bittide_tiled_pass<false><<<grid, block, smem, st>>>(p);
       const cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
       cur = 1 - cur;
+      first = false;
     }
     if (!measure) continue;
+    // The centred x goes to the free slot; the next period overwrites it.
     p.psi_in = psi_buf + cur * bn;
     p.nu_in = nu_buf + cur * bn;
+    p.x_in = x_buf + (1 - cur) * xn;
     p.freq_t = nullptr;
     p.beta_t = beta != nullptr ? beta + t * bn : nullptr;
     p.wm_bmax = wm_bmax;
     p.wm_idx = wm_idx;
     p.wm_lo = wm_lo;
     p.wm_hi = wm_hi;
-    bittide_row_mean<<<(B + 127) / 128, 128, 0, st>>>(p.psi_in, B, N, mean,
-                                                      trip_min, t);
-    bittide_tiled_pass<true><<<grid, block, 0, st>>>(p);
+    bittide_row_mean<<<B, kMeanThreads, 0, st>>>(
+        p.psi_in, p.nu_in, lat, N, C, p.NP, mean, x_buf + (1 - cur) * xn,
+        trip_min, t);
+    bittide_tiled_pass<true><<<grid, block, smem, st>>>(p);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }

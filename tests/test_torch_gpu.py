@@ -15,8 +15,10 @@ performs the plain version's float32 operations in the same order, so
 the results are held to ``FREQ_ATOL_PPM`` / ``BETA_ATOL_FRAMES`` and
 watermark indices exactly.  The tiled kernel runs ``TILED_PARITY_CASES``
 (torus3d(8) at B=9, torus3d(7) at B=5, one class and a one-way second
-class) in every variant and with guard bands that trip at different
-records and that never trip; the fused guard runs ``FUSED_GUARD_CASES``
+class; the ring's edges: torus3d(6) with fewer panels than ring stages,
+torus3d(6) with three classes, torus3d(8) at B=17) in every variant and
+with guard bands that trip at different records and that never trip, at
+0.0 error; the fused guard runs ``FUSED_GUARD_CASES``
 (FC8, and torus3d(8) with two classes: 512 threads per CTA, A from L2),
 whose draws trip at different records so that the wrapper replays the
 chunk.  Guard runs are compared over the records up to the earliest trip,
@@ -28,7 +30,8 @@ at 0.0 error; a draw's bits do not depend on the batch (alone and in a
 batch of 1,024) nor on whether its tables are shared or per-draw; the
 guard freezes the whole batch at the earliest trip.  The per-step kernel
 runs ``PERSTEP_PARITY_CASES`` (FC8, FC8 with two classes, the ragged
-torus3d(7) with holdover) in every variant and with the guard, at 0.0
+torus3d(7) with holdover, torus3d(6) with one class and with three) in
+every variant and with the guard, at 0.0
 error; its bits do not depend on how the periods are cut into calls nor
 on the kernel (the fused kernel at B = 1 gives the same bits); after a
 trip or the stop cap its records are frozen.
@@ -155,8 +158,7 @@ def _tiled_variants(args, kw, b):
                          ids=["nu", "beta", "wm", "beta+wm", "guard_trips",
                               "guard_quiet"])
 @pytest.mark.parametrize("case", chip_smoke.TILED_PARITY_CASES,
-                         ids=["torus3d_8", "torus3d_8_two_classes",
-                              "torus3d_7", "torus3d_7_two_classes"])
+                         ids=list(chip_smoke.TILED_PARITY_IDS))
 def test_tiled_kernel_matches_plain_version(cuda, case, variant):
     _, args, mask = chip_smoke.parity_inputs(case, cuda, one_way=True)
     b = args[0].shape[0]
@@ -174,7 +176,7 @@ def test_tiled_kernel_matches_plain_version(cuda, case, variant):
         tstar = int(want.guard_state.min())
         assert (tstar < records - 1) == (variant == 4)
         records = min(tstar, records - 1) + 1
-    chip_smoke.kernel_vs_plain(got, want, records=records)
+    chip_smoke.kernel_vs_plain(got, want, records=records, exact=True)
 
 
 @pytest.mark.parametrize("guard_case", chip_smoke.FUSED_GUARD_CASES,
