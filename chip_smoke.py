@@ -11,12 +11,20 @@ Phases, one JSON object per line:
               (registers, shared memory, spills) and the card's
               ``nvidia-smi`` name and power limit are printed.
 2. parity   — each kernel against its plain PyTorch version on the card.
-              Fused (``PARITY_CASES``): FC8 at B=64 and at 4·SMs·3 + 5
-              draws (three draws per CTA, a partial last CTA), torus3d(6)
-              at B=16 with two latency classes (A read from L2) and with
-              one (A in shared memory); per-draw kp / lat / lamsum /
-              holdover mask, 400 periods recorded every 20, all four
-              variants.  Tiled (``TILED_PARITY_CASES``): torus3d(8) at
+              Fused (``PARITY_CASES``, each held to the plan the library
+              reports): FC8 at B=64 and at 4·SMs·3 + 5 draws (the warp
+              path, a partial last CTA) with two latency classes (row
+              lists) and with one (the dense loop), torus3d(6) at B=16
+              with two classes and with one (the block path's row
+              lists), fully_connected(64) at B=16 (the block path's
+              dense loop, A in shared memory), fully_connected(16) at
+              B=64 with two classes (the warp path's dense loop, A in
+              shared memory), torus3d(3) at B=40 with one class and two
+              (27 nodes: lanes past a warp's draw); per-draw kp / lat /
+              lamsum / holdover mask, 400 periods recorded every 20, all
+              four variants, 0.0 error; ``NONFINITE_CASES``: one ψ
+              seeded inf (the vote's dense periods), inf / NaN at the
+              plain version's positions, watermarks included.  Tiled (``TILED_PARITY_CASES``): torus3d(8) at
               B=9 (two draw groups, the second partial) and torus3d(7)
               (ragged tiles, N % 4 != 0: the 4-byte copies) at B=5, one
               class and two (the second a single directed edge, so the
@@ -34,8 +42,11 @@ Phases, one JSON object per line:
               last CTA of each draw partial), the ragged
               bounded_degree_topo(96, 4, 3) with 2 isolated nodes and 2
               leaves, the same with K + 2 padded slots, and per-draw
-              tables with a dropped link per draw; every variant and the
-              guard tripping at different records and never; 0.0 error.
+              tables with a dropped link per draw (the direct pass), and
+              torus3d(21) at B=235 with shared tables (the grouped pass);
+              every variant and the guard tripping at different records
+              and never; 0.0 error, each by the plan the library
+              reports.
               Per-step (``PERSTEP_PARITY_CASES``): FC8, FC8 with the
               1000 m spool (two classes), the ragged torus3d(7) with a
               holdover mask, torus3d(6) with one class and with three, one
@@ -45,7 +56,9 @@ Phases, one JSON object per line:
 3. fc8      — the main path at users' size: ``simulate_ensemble_dense`` on
               fully_connected(8), B=4096 draws in ±8 ppm, kp=2e-8,
               dt=5e-5, 10,000 steps recorded every 20, β + watermarks;
-              256 draws held against the segment-sum lane on the card.
+              256 draws held against the segment-sum lane on the card;
+              the kernel's latency bound (``fused_latency_bound``) beside
+              its operations bound.
 4. torus    — torus3d(6), B=256, kp=2e-8, dt=1e-3, 2,000 steps,
               watermarks; 16 draws held against the segment-sum lane.
 5. segsum   — the segment-sum lane: cube, B=64, the quickstart's discrete
@@ -161,6 +174,20 @@ LINKDROP_ATOL_PPM = 2e-5
 # H100 SXM peaks (NVIDIA data sheet): float32 without tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# Cycle latencies of the fused kernel's latency bound, measured by
+# scripts/torch_latency_probe.py on an NVIDIA H100 80GB HBM3 at 700 W
+# (the least of five runs of 4,096 rounds): a dependent float32 add (a
+# multiply takes 4.138); one synchronisation round of a period — x
+# stored, the sync and its vote, a neighbour's x loaded — on the warp
+# path through shared memory, on its shuffle path (one class, rows in
+# registers: a __shfl_sync) and on the block path by CTA size in threads
+# (a CTA between two sizes takes the smaller's); and the update's
+# dependent chain after the row sum (err: 2, c: 1, ν': 2, ψ': 2, x: 1).
+FP32_DEP_CYCLES = 4.117
+SYNC_CYCLES = {"warp": 34.28, "shfl": 27.26}
+BLOCK_SYNC_CYCLES = {64: 71.33, 128: 75.33, 216: 81.40, 512: 100.46,
+                     1024: 145.93}
+UPDATE_CHAIN_OPS = 8
 
 
 def emit(obj):
@@ -201,14 +228,40 @@ def two_class_links(topo):
 
 
 # Kernel-vs-plain cases of phase 2 and of the card tests: (topology,
-# draws, latency classes).  "waves" stands for 4·SMs·3 + 5 draws of FC8:
-# three draws per CTA and a partial last CTA.  torus3d(6) with two classes
-# (2·216²·4 B = 373 KB) reads A from L2; with one class (187 KB) A sits in
-# shared memory, as on phase 4's main path.
+# draws, latency classes), each with its fused plan (``launch_plan``).
+# FC8 runs the warp path (four draws in the lanes of a warp): with two
+# classes its rows hold 7 of 16 terms (row lists), with one 7 of 8 (the
+# dense loop, A in shared memory).  "waves" stands for 4·SMs·3 + 5 draws
+# of FC8: several warps per CTA and a partial last CTA.  torus3d(6) runs
+# the block path on row lists, with two classes and with one (phase 4's
+# main path); fully_connected(64) runs the block path's dense loop (A in
+# shared memory), the dense fallback of the list plan, and
+# fully_connected(16) with two classes (rows of 15 terms, too long for
+# registers) the warp path's; torus3d(3) (27 nodes: one draw per warp, 5
+# lanes past it) runs the warp path's shuffles with one class and its
+# shared memory with two.
 PARITY_CASES = (("fully_connected_8", 64, 2),
                 ("fully_connected_8", "waves", 2),
+                ("fully_connected_8", "waves", 1),
                 ("torus3d_6", 16, 2),
-                ("torus3d_6", 16, 1))
+                ("torus3d_6", 16, 1),
+                ("fully_connected_64", 16, 1),
+                ("fully_connected_16", 64, 2),
+                ("torus3d_3", 40, 1),
+                ("torus3d_3", 40, 2))
+PARITY_IDS = ("fc8", "fc8_waves", "fc8_waves_one_class", "torus3d_6",
+              "torus3d_6_one_class", "fc64", "fc16_two_classes",
+              "torus3d_3_one_class", "torus3d_3")
+# The fused kernel with one ψ of a draw seeded inf: the kernel's vote
+# sends that period (and the CTA's or warp's other draws) to the dense
+# loop, so the inf / NaN pattern is the plain version's.  torus3d(6) on
+# the block path's row lists, FC8 with two classes on the warp path's
+# (x in shared memory), torus3d(3) with one class on its shuffles.
+NONFINITE_CASES = (("torus3d_6", 16, 1), ("fully_connected_8", 64, 2),
+                   ("torus3d_3", 40, 1))
+NONFINITE_IDS = ("torus3d_6_block_lists", "fc8_warp_lists",
+                 "torus3d_3_warp_shuffles")
+NONFINITE_SEED = (3, 5)          # (draw, node) whose ψ starts at +inf
 
 
 def waves_draws(dev) -> int:
@@ -248,12 +301,18 @@ FUSED_GUARD_CASES = ((("fully_connected_8", 64, 2), 20, 20, (19, 7)),
 # B = 9 (300 nodes: the last CTA of each draw is partial); the ragged
 # bounded_degree_topo(96, 4, 3) with 2 isolated nodes and 2 leaves; the
 # same with K + 2 always-padded slots; and per-draw tables in which every
-# draw drops its own link (both directions) and has its own latencies.
+# draw drops its own link (both directions) and has its own latencies —
+# all on the direct pass; and torus3d(21) × 235 draws with shared tables
+# (8.7 MB of ψ: the grouped pass, 8 draws per thread, the last group of 3).
 SPARSE_PARITY_CASES = (("fully_connected_8", 64, "shared"),
                        ("random_regular_300", 9, "shared"),
                        ("bounded_degree_96", 16, "shared"),
                        ("bounded_degree_96", 16, "extra_slots"),
-                       ("random_regular_300", 9, "per_draw_dropped"))
+                       ("random_regular_300", 9, "per_draw_dropped"),
+                       ("torus3d_21", 235, "shared"))
+SPARSE_PARITY_IDS = ("fc8", "random_regular_300", "bounded_degree_96",
+                     "bounded_degree_96_k+2", "per_draw_dropped",
+                     "torus3d_21_grouped")
 SPARSE_RECORDS, SPARSE_EVERY = 6, 5
 # Per-step kernel-vs-plain cases of phase 2 and of the card tests: FC8;
 # FC8 with the 1000 m spool on the pair (0, 1) (two latency classes); the
@@ -301,11 +360,12 @@ def sparse_parity_inputs(case, dev):
     frames."""
     import numpy as np
     import torch
-    from repro_torch.core import fully_connected, random_regular
+    from repro_torch.core import fully_connected, random_regular, torus3d
     from repro_torch.kernels.bittide_sparse import ellify, max_in_degree
     name, b, tables = case
     topo = {"fully_connected_8": lambda: fully_connected(8),
             "random_regular_300": lambda: random_regular(300, 3, 0),
+            "torus3d_21": lambda: torus3d(21),
             "bounded_degree_96": lambda: bounded_degree_topo(
                 96, 4, 3, isolated=2, leaves=2)}[name]()
     n, e = topo.num_nodes, topo.num_edges
@@ -381,6 +441,9 @@ def parity_inputs(case, dev, one_way=False):
     from repro_torch.core import fully_connected, make_links, torus3d
     name, b, classes = case
     topo = {"fully_connected_8": lambda: fully_connected(8),
+            "fully_connected_16": lambda: fully_connected(16),
+            "fully_connected_64": lambda: fully_connected(64),
+            "torus3d_3": lambda: torus3d(3),
             "torus3d_6": lambda: torus3d(6), "torus3d_7": lambda: torus3d(7),
             "torus3d_8": lambda: torus3d(8)}[name]()
     b = waves_draws(dev) if b == "waves" else b
@@ -481,6 +544,43 @@ def bound(b, n, c, nnz, steps, records, beta, wm):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def sync_cycles(plan, c) -> float:
+    """The measured cycles of one period's synchronisation round under a
+    fused launch plan (SYNC_CYCLES, BLOCK_SYNC_CYCLES)."""
+    if plan["path"] == "warp":
+        return SYNC_CYCLES["shfl" if c == 1 and plan["registers"]
+                           else "warp"]
+    # A block path CTA holds at least 33 threads: two warps, as 64.
+    width = 32 * -(-plan["threads"] // 32)
+    return BLOCK_SYNC_CYCLES[max(t for t in BLOCK_SYNC_CYCLES
+                                 if t <= max(width, 64))]
+
+
+def fused_latency_bound(row_terms, c, n, steps, records, measure, sync,
+                        clock_mhz):
+    """(latency_bound_ms, cycles per period) of one fused-kernel call: the
+    periods run one after another, so the call takes at least, per period,
+    the longest row's chain of ``row_terms`` dependent adds plus one add
+    per class, the update's UPDATE_CHAIN_OPS dependent operations (each
+    FP32_DEP_CYCLES) and one synchronisation round (``sync`` cycles,
+    :func:`sync_cycles`), and per record with a measure pass the row
+    mean's chain of N adds, at the card's highest SM clock."""
+    period = (FP32_DEP_CYCLES * (row_terms + c + UPDATE_CHAIN_OPS)
+              + sync)
+    cycles = steps * period + (records * FP32_DEP_CYCLES * n if measure
+                               else 0)
+    return cycles / (clock_mhz * 1e3), period
+
+
 def float32_floor_ppm(kp, deg_max, psi_max):
     """Float32 floor between two implementations of the period loop, ppm.
 
@@ -524,6 +624,90 @@ def trip_bands(args, kw, recs):
                         for i, r in enumerate(recs)]).contiguous()
 
 
+def fused_plan_of(args, dev, guard=False) -> dict:
+    """The fused kernel's launch plan for these kernel arguments, as the
+    wrapper computes it (the stack's row lists counted)."""
+    from repro_torch.kernels.bittide_step import launch_plan, row_lists
+    b, n = args[0].shape
+    return launch_plan(b, n, args[3].shape[0], dev,
+                       row_lists(args[3])[1].shape[0], guard=guard)
+
+
+def nonfinite_vs_plain(got, want, records=None) -> dict:
+    """The kernel against the plain version where values may be inf or
+    NaN: every value bit for bit, inf and NaN at the same positions (infs
+    of the same sign); raises otherwise.  Returns the count of non-finite
+    values and the largest error over the finite ones (0.0)."""
+    import torch
+    r = slice(None) if records is None else slice(0, records)
+    pairs = [(got.freq[r], want.freq[r]), (got.psi, want.psi),
+             (got.nu, want.nu)]
+    if got.beta is not None:
+        pairs.append((got.beta[r], want.beta[r]))
+    if got.watermarks is not None:
+        assert torch.equal(got.watermarks[1], want.watermarks[1])
+        pairs += [(got.watermarks[k], want.watermarks[k]) for k in (0, 2, 3)]
+    if got.guard_state is not None:
+        assert torch.equal(got.guard_state, want.guard_state)
+    bad = 0
+    for g, w in pairs:
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        bad += int((~torch.isfinite(w)).sum())
+    return dict(nonfinite_values=bad, nonfinite_positions_equal=True,
+                freq_err_ppm=0.0, beta_err_frames=0.0)
+
+
+def fused_nonfinite_rows(case, dev):
+    """One of ``NONFINITE_CASES`` with draw 3's ψ at node 5 started at
+    +inf: ν, β, ψ, ν', the watermarks (NaN kept by the running max and
+    min, as torch.maximum / minimum keep it) and the guard (bands that
+    trip the finite draws at different records) against the plain
+    version, bit for bit with identical inf / NaN positions, by the plan
+    Python computed; the seeded draw goes non-finite and every other draw
+    stays finite.  Returns one row per variant."""
+    import torch
+    from repro_torch.kernels.bittide_step import (bittide_fused,
+                                                  bittide_fused_torch,
+                                                  fused_device_plan)
+    d, i = NONFINITE_SEED
+    topo, args, mask = parity_inputs(case, dev)
+    b = args[0].shape[0]
+    kw = dict(num_records=6, record_every=5, ctrl_mask=mask)
+    band = trip_bands(args, kw, [1 + k % 3 for k in range(b)])
+    psi = args[0].clone()
+    psi[d, i] = float("inf")
+    seeded = (psi,) + args[1:]
+    rows = []
+    for v in (dict(), dict(record_beta=True), dict(record_watermarks=True),
+              dict(record_beta=True, record_watermarks=True,
+                   record_guard=True, guard_lo=-band, guard_hi=band,
+                   guard_stop=5)):
+        plan = fused_plan_of(seeded, dev, guard="record_guard" in v)
+        assert plan["aggregation"] == "lists", plan
+        got = bittide_fused(*seeded, **kw, **v)
+        torch.cuda.synchronize()
+        assert fused_device_plan() == plan, (fused_device_plan(), plan)
+        want = bittide_fused_torch(*seeded, **kw, **v)
+        records = None
+        if v.get("record_guard"):
+            records = int(want.guard_state.min()) + 1
+        row = dict(phase="parity", kernel="bittide_fused",
+                   nonfinite_seed=[d, i], topology=topo.name, draws=b,
+                   classes=args[3].shape[0],
+                   beta=v.get("record_beta", False),
+                   watermarks=v.get("record_watermarks", False),
+                   guard=v.get("record_guard", False), launch_plan=plan)
+        row.update(nonfinite_vs_plain(got, want, records))
+        fin = torch.isfinite(got.freq[:records]).all(dim=2).all(dim=0)
+        row["seeded_draw_nonfinite"] = not bool(fin[d])
+        row["other_draws_finite"] = bool(
+            fin[torch.arange(b, device=fin.device) != d].all())
+        assert row["seeded_draw_nonfinite"] and \
+            row["other_draws_finite"], row
+        rows.append(row)
+    return rows
+
+
 def phase_parity(dev):
     """Each kernel vs its plain version on the card; returns the max
     errors per kernel."""
@@ -531,7 +715,7 @@ def phase_parity(dev):
     import torch
     from repro_torch.kernels.bittide_step import (bittide_fused,
                                                   bittide_fused_torch,
-                                                  launch_plan)
+                                                  fused_device_plan)
     worst = {k: dict(freq_ppm=0.0, beta_frames=0.0)
              for k in ("bittide_fused", "bittide_tiled", "bittide_sparse",
                        "bittide_step")}
@@ -547,7 +731,7 @@ def phase_parity(dev):
     for case in PARITY_CASES:
         topo, args, mask = parity_inputs(case, dev)
         b, n = args[0].shape
-        plan = launch_plan(b, n, args[3].shape[0], dev)
+        plan = fused_plan_of(args, dev)
         plans.append((plan, b))
         for beta, wm in ((False, False), (True, False), (False, True),
                          (True, True)):
@@ -555,18 +739,30 @@ def phase_parity(dev):
                       record_beta=beta, record_watermarks=wm)
             got = bittide_fused(*args, **kw)
             torch.cuda.synchronize()
+            # The library launched the plan Python computed.
+            assert fused_device_plan() == plan, (fused_device_plan(), plan)
             want = bittide_fused_torch(*args, **kw)
             row = dict(phase="parity", kernel="bittide_fused",
                        topology=topo.name, draws=b,
                        classes=args[3].shape[0], beta=beta, watermarks=wm,
                        launch_plan=plan)
-            row.update(kernel_vs_plain(got, want))
+            row.update(kernel_vs_plain(got, want, exact=True))
             note("bittide_fused", row)
-    # The cases reach A in shared memory and in L2, and several draws per
-    # CTA with a partial last CTA.
+    # The cases reach both paths with both aggregations, rows in registers
+    # and not on each path, the stack in shared memory and in device
+    # memory, and several draws per CTA with a partial last CTA.
+    assert {(p["path"], p["aggregation"]) for p, _ in plans} == {
+        ("warp", "lists"), ("warp", "dense"), ("block", "lists"),
+        ("block", "dense")}, plans
+    assert {(p["path"], p["registers"]) for p, _ in plans} == {
+        ("warp", True), ("warp", False), ("block", True),
+        ("block", False)}, plans
     assert {p["a_in_smem"] for p, _ in plans} == {True, False}, plans
     assert any(p["draws_per_cta"] > 1 and b % p["draws_per_cta"]
                for p, b in plans), plans
+    for case in NONFINITE_CASES:
+        for row in fused_nonfinite_rows(case, dev):
+            note("bittide_fused", row)
 
     # The fused guard: draws trip at different records, so the wrapper
     # launches the chunk twice (the second time capped at the earliest
@@ -594,9 +790,9 @@ def phase_parity(dev):
                        earliest_trip=int(trips.min()),
                        tripped_draws=int((trips == trips.min()).sum()),
                        launches=launches, valid_records=valid,
-                       launch_plan=launch_plan(b, n, args[3].shape[0], dev,
-                                               guard=True))
-            row.update(kernel_vs_plain(got, want, records=valid))
+                       launch_plan=fused_plan_of(args, dev, guard=True))
+            row.update(kernel_vs_plain(got, want, records=valid,
+                                       exact=True))
             # Draws ran past the earliest trip, so the chunk was replayed.
             assert launches == 2 and row["earliest_trip"] < stop, row
             note("bittide_fused", row)
@@ -662,18 +858,25 @@ def sparse_parity(dev, note):
     import torch
     from repro_torch.kernels.bittide_sparse import (bittide_sparse,
                                                     bittide_sparse_torch)
-    from repro_torch.kernels.bittide_step import sparse_tile
+    from repro_torch.kernels.bittide_step import (sparse_device_plan,
+                                                  sparse_launch_plan)
+    grouped = set()
     for case in SPARSE_PARITY_CASES:
         topo, args, mask = sparse_parity_inputs(case, dev)
         b, n = args[0].shape
         kw = dict(num_records=SPARSE_RECORDS, record_every=SPARSE_EVERY,
                   ctrl_mask=mask)
+        plan = sparse_launch_plan(b, n, int(args[3].shape[0]),
+                                  args[4].shape[0] == args[5].shape[0] == 1)
+        grouped.add(plan["grouped"])
         trip_rows = []
         for v in sparse_variants(args, kw, b):
             before = bittide_sparse.launches
             got = bittide_sparse(*args, **kw, **v)
             torch.cuda.synchronize()
             assert bittide_sparse.launches == before + 1
+            # The library ran the plan Python computed.
+            assert sparse_device_plan() == plan, (sparse_device_plan(), plan)
             want = bittide_sparse_torch(*args, **kw, **v)
             valid = SPARSE_RECORDS
             row = dict(phase="parity", kernel="bittide_sparse",
@@ -683,7 +886,7 @@ def sparse_parity(dev, note):
                        beta=v["record_beta"],
                        watermarks=v["record_watermarks"],
                        guard=v.get("record_guard", False),
-                       nodes_per_cta=sparse_tile(n))
+                       launch_plan=plan)
             if row["guard"]:
                 row["earliest_trip"] = int(want.guard_state.min())
                 valid = min(row["earliest_trip"], SPARSE_RECORDS - 1) + 1
@@ -695,6 +898,7 @@ def sparse_parity(dev, note):
             note("bittide_sparse", row)
         assert trip_rows[0] < SPARSE_RECORDS - 1 and \
             trip_rows[1] == SPARSE_RECORDS, trip_rows
+    assert grouped == {True, False}, grouped
 
 
 def perstep_inputs(case, dev):
@@ -834,7 +1038,9 @@ def run_main_path(name, topo, b, kp, dt, steps, rec, tel, dev, engine,
     from repro_torch.kernels import simulate_ensemble_dense
     from repro_torch.kernels.bittide_step import (bittide_fused,
                                                   bittide_fused_torch,
-                                                  bittide_tiled, launch_plan,
+                                                  bittide_tiled,
+                                                  fused_device_plan,
+                                                  row_lists,
                                                   tiled_launch_plan)
     from repro_torch.telemetry import Watermarks
     kernel = {"fused": bittide_fused, "tiled": bittide_tiled}[engine]
@@ -884,8 +1090,16 @@ def run_main_path(name, topo, b, kp, dt, steps, rec, tel, dev, engine,
     dt_frames = float(125e6 * dt)
     kw = dict(num_records=records, record_every=rec, ctrl_mask=mask,
               record_beta=tel.beta, record_watermarks=tel.watermarks)
-    kernel_ms = cuda_ms(lambda: kernel(*args, dt_frames, **kw), reps)
-    got = kernel(*args, dt_frames, **kw)
+    # The fused kernel's row lists, built once for the timed launches (the
+    # main path builds them once per call).
+    kkw = dict(kw, lists=row_lists(args[3])) if engine == "fused" else kw
+    kernel_ms = cuda_ms(lambda: kernel(*args, dt_frames, **kkw), reps)
+    got = kernel(*args, dt_frames, **kkw)
+    if engine == "fused":
+        plan = fused_plan_of(args, dev)
+        assert fused_device_plan() == plan, (fused_device_plan(), plan)
+    else:
+        plan = tiled_launch_plan(b, n)
     host = lambda x: x.transpose(0, 1).cpu().numpy()
     assert np.array_equal(host(got.freq * 1e6), freq), \
         f"{name}: the compared launch differs from the main path's"
@@ -908,16 +1122,26 @@ def run_main_path(name, topo, b, kp, dt, steps, rec, tel, dev, engine,
     else:
         pkw = dict(kw, num_records=plain_depth[0],
                    record_every=plain_depth[1])
-        got = kernel(*args, dt_frames, **pkw)
-        same_ms = cuda_ms(lambda: kernel(*args, dt_frames, **pkw), 3)
+        got = kernel(*args, dt_frames, **dict(kkw, **pkw))
+        same_ms = cuda_ms(lambda: kernel(*args, dt_frames,
+                                         **dict(kkw, **pkw)), 3)
     want, plain_s = timed(lambda: bittide_fused_torch(*args, dt_frames,
                                                       **pkw))
     err = kernel_vs_plain(got, want)
     nnz = float((args[3] != 0).sum())
     bound_ms, bound_by = bound(b, n, c, nnz, records * rec, records,
                                tel.beta, tel.watermarks)
-    plan = (launch_plan(b, n, c, dev) if engine == "fused"
-            else tiled_launch_plan(b, n))
+    latency = {}
+    if engine == "fused":
+        clock = max_sm_clock_mhz()
+        lat_ms, period = fused_latency_bound(
+            kkw["lists"][1].shape[0], c, n,
+            records * rec, records, tel.beta or tel.watermarks,
+            sync_cycles(plan, c), clock)
+        latency = dict(latency_bound_ms=lat_ms,
+                       latency_bound_cycles_per_period=period,
+                       latency_bound_sync_cycles=sync_cycles(plan, c),
+                       max_sm_clock_mhz=clock)
     summ = summary(freq, times)
     out = dict(phase=name, topology=topo.name, nodes=n, draws=b,
                steps=steps, record_every=rec, dt=dt, kp=kp, engine=engine,
@@ -937,7 +1161,7 @@ def run_main_path(name, topo, b, kp, dt, steps, rec, tel, dev, engine,
                                         else "")),
                kernel_ms_same_work=same_ms, kernel_vs_plain_draws=b,
                **{f"kernel_vs_plain_{k}": v for k, v in err.items()},
-               bound_ms=bound_ms, bound_by=bound_by, **summ)
+               bound_ms=bound_ms, bound_by=bound_by, **latency, **summ)
     assert err_ss <= bar, out
     assert summ["converged_draws"] == b, out
     return out, args, kw, res
@@ -1115,9 +1339,10 @@ def hold_engine_calls(calls, max_records: int) -> dict:
             kw["num_records"] = max_records
             if kw["record_guard"]:
                 kw["guard_stop"] = min(kw["guard_stop"], max_records - 1)
-            kernel = {"bittide_fused": bittide_fused,
-                      "bittide_tiled": bittide_tiled}[name]
-            out = kernel(*args, **kw)
+            if name == "bittide_fused":
+                out = bittide_fused(*args, **kw, lists=a["lists"])
+            else:
+                out = bittide_tiled(*args, **kw)
         want = bittide_fused_torch(*args, **kw)
         valid = kw["num_records"]
         if kw["record_guard"]:
@@ -1292,6 +1517,8 @@ def run_sparse(dev, k=100, b=8, steps=2_000, rec=100):
     from repro_torch.kernels.bittide_sparse import (bittide_sparse,
                                                     bittide_sparse_torch,
                                                     ellify)
+    from repro_torch.kernels.bittide_step import (sparse_device_plan,
+                                                  sparse_launch_plan)
     from repro_torch.telemetry import Telemetry
     kp, dt = 2e-8, 5e-3
     t0 = time.perf_counter()
@@ -1326,8 +1553,12 @@ def run_sparse(dev, k=100, b=8, steps=2_000, rec=100):
     del calls
     args, kw = sparse_call_args(a)
 
-    # One more launch on the main path's inputs reproduces its records.
+    # One more launch on the main path's inputs reproduces its records,
+    # by the plan Python computed.
     again = bittide_sparse(*args, **kw)
+    plan = sparse_launch_plan(b, n, int(args[3].shape[0]),
+                              args[4].shape[0] == args[5].shape[0] == 1)
+    assert sparse_device_plan() == plan, (sparse_device_plan(), plan)
     host = lambda x: x.transpose(0, 1).cpu().numpy()
     assert np.array_equal(host(again.freq * 1e6), freq), \
         "sparse: the compared launch differs from the main path's"
@@ -1410,7 +1641,7 @@ def run_sparse(dev, k=100, b=8, steps=2_000, rec=100):
     out_row = dict(
         phase="sparse", topology=topo.name, nodes=n, edges=e, draws=b,
         k=int(args[3].shape[0]), steps=steps, record_every=rec, dt=dt, kp=kp,
-        engine=res.engine, nodes_per_cta=res.tile_j, launches=launches,
+        engine=res.engine, launch_plan=plan, launches=launches,
         passes=passes, kernel_launches_per_call=steps + 3 * records,
         topology_build_s=topology_build_s, wall_s=wall, kernel_ms=kernel_ms,
         kernel_ms_per_pass=kernel_ms / passes,
@@ -1976,6 +2207,21 @@ def main() -> int:
              max_beta_err_frames=errs["bittide_fused"]["beta_frames"],
              ms=fc8["kernel_ms"], plain_ms=fc8["plain_ms"],
              bound_ms=fc8["bound_ms"], bound_by=fc8["bound_by"],
+             latency_bound_ms=fc8["latency_bound_ms"],
+             latency_bound_note=(
+                 f"serial periods at {fc8['max_sm_clock_mhz']} MHz: "
+                 "the longest row's dependent adds + one per class + "
+                 f"{UPDATE_CHAIN_OPS} update operations at "
+                 f"{FP32_DEP_CYCLES} cycles and one synchronisation "
+                 f"round ({fc8['latency_bound_sync_cycles']} cycles at "
+                 "phase 3, "
+                 f"{torus['latency_bound_sync_cycles']} at phase 4), + N "
+                 "adds per measure pass; cycle costs measured by "
+                 "scripts/torch_latency_probe.py"),
+             unit="phase 3's call (FC8, B=4096, 10,000 periods)",
+             phase4_ms=torus["kernel_ms"], phase4_bound_ms=torus["bound_ms"],
+             phase4_latency_bound_ms=torus["latency_bound_ms"],
+             launch_plans=[fc8["launch_plan"], torus["launch_plan"]],
              library_ms=None, library_note=no_library),
         dict(name="bittide_tiled", route="cuda",
              source="src/repro_torch/kernels/csrc/bittide_tiled.cu",

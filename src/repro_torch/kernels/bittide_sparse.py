@@ -23,7 +23,11 @@ nothing.
 ``bittide_sparse`` (``csrc/bittide_sparse.cu``) replaces
 ``repro/kernels/bittide_sparse.py::_sparse_kernel``: one launch per
 period from a C launch loop, the state in a ping-pong pair in device
-memory, one thread per (draw, node) pair summing k = 0..K−1 in order.
+memory.  Its plan (:func:`repro_torch.kernels.bittide_step.
+sparse_launch_plan`) is grouped for shared tables and a (B, N) ψ + ν
+beyond 8 MiB — the thread of node i loads each slot once for a group of
+up to 8 draws and sums k = 0..K−1 in order for each — and direct, one
+thread per (draw, node) pair, otherwise.
 ``bittide_sparse_torch`` is its plain PyTorch version: the same float32
 operations in the same order, each its own torch op, so the two agree bit
 for bit.  The wrapper runs the plain version only for CPU tensors; for
@@ -53,7 +57,7 @@ from repro_torch.core.topology import Topology
 
 from .api import EngineOutputs
 from .bittide_step import (VARIANTS_USED, _device_kind, _library, _outputs,
-                           _ptr, sparse_tile)
+                           _ptr, sparse_launch_plan)
 
 __all__ = ["ellify", "max_in_degree", "bittide_sparse",
            "bittide_sparse_torch", "MEAN_CHUNK"]
@@ -244,18 +248,20 @@ def bittide_sparse(psi, nu, nu_u, nbr, latf, w, lamsum, kp, beta_off,
     last = (min(num_records - 1, int(guard_stop)) if record_guard
             else num_records - 1)
     kn = k * n
+    plan = sparse_launch_plan(b, n, k, latf.shape[0] == w.shape[0] == 1)
     rc = _library("bittide_sparse").bittide_sparse_launch(
         _ptr(nbr), _ptr(latf), 0 if latf.shape[0] == 1 else kn, _ptr(w),
         0 if w.shape[0] == 1 else kn, _ptr(nu_u), _ptr(kp), _ptr(beta_off),
         _ptr(mask), mask.shape[0], _ptr(lamsum), float(dt_frames), b, n, k,
-        num_records, record_every, last, sparse_tile(n), _ptr(psi_buf),
+        num_records, record_every, last, int(plan["grouped"]),
+        plan["nodes_per_cta"], plan["draws_per_thread"], _ptr(psi_buf),
         _ptr(nu_buf), _ptr(freq), _ptr(beta),
         *(_ptr(x) for x in (wm if wm else (None,) * 4)), _ptr(guard_lo),
         _ptr(guard_hi), _ptr(trip), _ptr(trip_min), _ptr(partial),
         _ptr(mean), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"bittide_sparse launch failed with CUDA error "
-                           f"{rc} (B={b}, N={n}, K={k})")
+                           f"{rc} (B={b}, N={n}, K={k}, plan {plan})")
     bittide_sparse.launches += 1
     slot = (max(last + 1, 0) * record_every) % 2
     return EngineOutputs(psi=psi_buf[slot], nu=nu_buf[slot], freq=freq,

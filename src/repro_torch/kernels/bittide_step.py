@@ -11,7 +11,10 @@ and ``lamsum``:
 
 ``bittide_fused`` (``csrc/bittide_fused.cu``) replaces
 ``repro/kernels/bittide_step.py::_fused_kernel``: one launch, each CTA
-owns whole draws and loops over every period itself.  ``bittide_tiled``
+owns whole draws and loops over every period itself; its plan
+(:func:`launch_plan`) puts a draw of N ≤ 32 nodes in the lanes of one warp
+and sums each row's nonzero terms only (:func:`row_lists`) where that
+pays.  ``bittide_tiled``
 (``csrc/bittide_tiled.cu``) replaces ``_tiled_kernel``, the lane for dense
 networks beyond the fused regime: one launch per period (the launch loop
 runs in C).  ``bittide_perstep`` (``csrc/bittide_step.cu``) replaces
@@ -64,10 +67,12 @@ from .api import EngineOutputs
 __all__ = ["bittide_fused", "bittide_fused_torch", "bittide_perstep",
            "bittide_perstep_torch", "bittide_tiled",
            "bittide_tiled_torch", "select_engine", "device_plan",
-           "draws_per_cta", "launch_plan", "perstep_launch_plan",
-           "tiled_launch_plan",
+           "draws_per_cta", "fused_device_plan", "fused_plan",
+           "launch_plan", "perstep_launch_plan", "row_lists",
+           "sparse_device_plan", "sparse_launch_plan", "tiled_launch_plan",
            "FUSED_N_MAX", "KERNEL_N_MAX", "MAX_CLASSES", "PERSTEP_TILE_J",
-           "RING_STAGES", "SPARSE_TILE", "TILE_I", "TILE_J",
+           "RING_STAGES", "SPARSE_DIRECT_STATE_BYTES", "SPARSE_GROUP_MAX",
+           "SPARSE_TILE", "TILE_I", "TILE_J",
            "TILED_STACK_BYTES_MAX", "VARIANTS_USED", "sparse_bytes",
            "sparse_tile"]
 
@@ -91,6 +96,10 @@ FUSED_N_MAX = 256
 KERNEL_N_MAX = 1024
 MAX_CLASSES = 8            # latency classes the fused kernel keeps in registers
 THREADS_PER_CTA = 128      # target CTA size for small networks
+FUSED_WARP_N_MAX = 32      # fused kernel: a draw of at most 32 nodes per warp
+FUSED_WARPS_PER_CTA = 4    # fused kernel, warp path: warps per CTA
+FUSED_REG_TERMS = 8        # fused kernel: rows of at most this many terms
+                           # are held in registers
 TILE_I = 32                # tiled / per-step: destination rows per CTA
 TILE_J = 64                # tiled kernel: source nodes per panel
 PERSTEP_TILE_J = 32        # per-step kernel: source nodes per panel
@@ -98,7 +107,10 @@ RING_STAGES = 4            # tiled / per-step: panels in the shared-memory ring
 TILED_GROUP_MAX = 8        # tiled kernel: draws per CTA
 TILED_DRAWS_PER_WARP = 4   # tiled kernel: accumulators per thread
 TILED_STACK_BYTES_MAX = 64 * 2**30
-SPARSE_TILE = 256          # sparse kernel: nodes per CTA, one draw per CTA
+SPARSE_TILE = 256          # sparse kernel: nodes per CTA, one thread each
+SPARSE_GROUP_MAX = 8       # sparse kernel, grouped pass: draws per thread
+SPARSE_DIRECT_STATE_BYTES = 8 * 2**20  # sparse kernel: the direct pass up to
+                                       # this much (B, N) ψ + ν (shared tables)
 
 # Kernel instances the wrappers selected in this process, keyed by what
 # the CUDA side keys on: (kernel, record_beta, record_watermarks,
@@ -118,6 +130,31 @@ def sparse_bytes(b: int, n: int, k: int) -> int:
     tables (nbr, latf, w) and ten (B, N) float32 state arrays (ψ / ν in
     and the ping-pong pair, ν_u, lamsum, mask)."""
     return 12 * k * n + 40 * b * n
+
+
+def sparse_launch_plan(b: int, n: int, k: int, shared_tables: bool) -> dict:
+    """How the sparse kernel is launched for B draws of N nodes on K slots
+    whose tables (latf and w) are shared by every draw or per-draw; the
+    wrapper hands it to ``csrc/bittide_sparse.cu``, which checks it.
+
+    Both passes run CTAs of ``sparse_tile(n)`` nodes, one thread per node.
+    ``grouped``: shared tables and a (B, N) ψ + ν beyond
+    SPARSE_DIRECT_STATE_BYTES — a thread runs a group of up to
+    SPARSE_GROUP_MAX draws and loads each slot's table entries once for
+    all of them; ``grid`` is (CTAs over the nodes, groups).  ``direct``
+    otherwise (per-draw tables always): one thread per (draw, node), the
+    draw fastest over tiles × B CTAs.  Below the bound the state sits in
+    L2 and the direct pass's more resident threads win."""
+    if min(b, n, k) < 1:
+        raise ValueError(f"B, N and K must be >= 1, got {b}, {n}, {k}")
+    tile = sparse_tile(n)
+    tiles = -(-n // tile)
+    grouped = shared_tables and 8 * b * n > SPARSE_DIRECT_STATE_BYTES
+    g = min(SPARSE_GROUP_MAX, b) if grouped else 1
+    groups = -(-b // g)
+    return dict(grouped=grouped, nodes_per_cta=tile,
+                draws_per_thread=-(-b // groups), grid=(tiles, groups),
+                threads=tile, slots=k)
 
 
 def select_engine(b: int, n: int, c: int,
@@ -159,10 +196,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
     if name == "bittide_fused":
         lib.bittide_fused_launch.restype = ci
         lib.bittide_fused_launch.argtypes = (
-            [vp] * 7 + [ci] + [vp] * 3 + [cf] + [ci] * 7 + [vp] * 10
+            [vp] * 9 + [ci] + [vp] * 3 + [cf] + [ci] * 11 + [vp] * 10
             + [ci, vp, vp])
         lib.bittide_smem_optin.restype = ci
         lib.bittide_smem_optin.argtypes = []
+        lib.bittide_fused_plan.restype = None
+        lib.bittide_fused_plan.argtypes = [vp]
     elif name == "bittide_step":
         lib.bittide_step_launch.restype = ci
         lib.bittide_step_launch.argtypes = (
@@ -180,27 +219,124 @@ def _declare(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
         cll = ctypes.c_longlong
         lib.bittide_sparse_launch.restype = ci
         lib.bittide_sparse_launch.argtypes = (
-            [vp, vp, cll, vp, cll] + [vp] * 4 + [ci, vp, cf] + [ci] * 7
+            [vp, vp, cll, vp, cll] + [vp] * 4 + [ci, vp, cf] + [ci] * 9
             + [vp] * 15)
+        lib.bittide_sparse_plan.restype = None
+        lib.bittide_sparse_plan.argtypes = [vp]
     return lib
 
 
-def launch_plan(b: int, n: int, c: int, device, guard: bool = False) -> dict:
-    """How the fused kernel is launched on ``device`` for B draws of N
-    nodes and C classes: draws per CTA, CTAs, threads per CTA, dynamic
-    shared memory, and whether the stack A is copied into shared memory
-    (when it fits beside the state, up to the device's opt-in limit) or
-    read from L2.  The guard variant adds one int per draw."""
+def row_lists(a_t: torch.Tensor):
+    """Each row's nonzero coefficients, the fused kernel's row lists, in
+    the layout the kernel reads.
+
+    For row i: class 0's nonzero A[0, i, j] with j ascending, then class
+    1's, and so on (an exactly-zero coefficient, +0 or −0, is left out).
+    Returns ``(counts, terms)``: counts (C, N) int32, the listed terms of
+    each (class, row); terms (L, N, 2) int32, slot k of row i at [k, i]
+    as (j, the bits of the float32 A[c, i, j]), L = max(1, the longest
+    row's terms); slots past a row's terms hold (i, +0.0).  Built on the
+    stack's device with no atomics; reading L waits on the device, so a
+    caller that launches many times on one stack builds the lists once
+    and hands them to :func:`bittide_fused`."""
+    c, n, _ = a_t.shape
+    nz = (a_t != 0).permute(2, 0, 1).reshape(n, c * n)   # row i: (c, j)
+    counts = nz.view(n, c, n).sum(dim=2).t().to(torch.int32).contiguous()
+    total = nz.sum(dim=1)
+    length = max(1, int(total.max())) if n else 1
+    # A stable sort puts each row's nonzero positions first, in order.
+    pos = torch.argsort((~nz).to(torch.uint8), dim=1,
+                        stable=True)[:, :length]
+    take = torch.arange(length, device=a_t.device) < total[:, None]
+    rows = torch.arange(n, device=a_t.device)[:, None]
+    vals = a_t.permute(2, 0, 1).reshape(n, c * n).gather(1, pos)
+    idx = torch.where(take, pos % n, rows).to(torch.int32)
+    coef = torch.where(take, vals, torch.zeros_like(vals)).contiguous()
+    terms = torch.stack((idx, coef.view(torch.int32)), dim=-1)  # (N, L, 2)
+    return counts, terms.transpose(0, 1).contiguous()
+
+
+def fused_plan(b: int, n: int, c: int, row_terms: int, num_sms: int,
+               smem_optin: int, guard: bool = False) -> dict:
+    """How the fused kernel is launched for B draws of N nodes and C
+    classes on a card of ``num_sms`` SMs that lets a CTA opt in to
+    ``smem_optin`` bytes of shared memory.
+
+    ``row_terms`` is the longest row's listed terms over all classes
+    (:func:`row_lists`).  ``path``: "warp" for N ≤
+    FUSED_WARP_N_MAX — 32 // N draws in the lanes of a warp, up to
+    FUSED_WARPS_PER_CTA warps per CTA, fewer while that would leave the
+    warps under one per SM each — else "block", a CTA of
+    ``draws_per_cta(b, n, num_sms)`` whole draws.  ``aggregation``:
+    "lists" when the longest row holds at most FUSED_REG_TERMS terms and
+    at most half of C·N (``list_slots`` = row_terms), else "dense".
+    ``registers``: each thread holds its row's terms in registers — the
+    listed ones, or all C·N of a dense row that short, zeros included —
+    and needs no stack in shared memory; the dense loop over longer rows
+    reads the stack from shared memory when it fits beside the state
+    (``a_in_smem``), else from device memory.  The block path's guard
+    adds one int per draw."""
+    warp = n <= FUSED_WARP_N_MAX
+    if warp:
+        per_warp = FUSED_WARP_N_MAX // n
+        warps = -(-b // per_warp)
+        wpc = max(1, min(FUSED_WARPS_PER_CTA, warps // num_sms))
+        g, threads = wpc * per_warp, 32 * wpc
+    else:
+        per_warp = 0
+        g = draws_per_cta(b, n, num_sms)
+        threads = g * n
+    state = 4 * (2 * g * c * n + 2 * g * n + g * c
+                 + (g if guard and not warp else 0))
+    lists = row_terms <= FUSED_REG_TERMS and 2 * row_terms <= c * n
+    registers = lists or c * n <= FUSED_REG_TERMS
+    a_in_smem = not registers and state + 4 * c * n * n <= smem_optin
+    return dict(path="warp" if warp else "block",
+                aggregation="lists" if lists else "dense",
+                registers=registers, draws_per_cta=g,
+                draws_per_warp=per_warp, ctas=-(-b // g), threads=threads,
+                list_slots=max(1, row_terms) if lists else 0,
+                a_in_smem=a_in_smem,
+                smem_bytes=state + (4 * c * n * n if a_in_smem else 0))
+
+
+def launch_plan(b: int, n: int, c: int, device, row_terms: int,
+                guard: bool = False) -> dict:
+    """:func:`fused_plan` on ``device``: its SM count and the shared
+    memory a CTA may opt in to there (a query of the built library)."""
     optin = _library("bittide_fused").bittide_smem_optin()
     if optin < 0:
         raise RuntimeError(f"shared-memory query failed: CUDA error {-optin}")
-    g = draws_per_cta(
-        b, n, torch.cuda.get_device_properties(device).multi_processor_count)
-    state = 4 * (g * c * n + 2 * g * n + (g if guard else 0))
-    a_in_smem = state + 4 * c * n * n <= optin
-    return dict(draws_per_cta=g, ctas=-(-b // g), threads=g * n,
-                smem_bytes=state + (4 * c * n * n if a_in_smem else 0),
-                a_in_smem=a_in_smem)
+    return fused_plan(
+        b, n, c, row_terms,
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        optin, guard)
+
+
+def fused_device_plan() -> dict:
+    """The plan of the built ``bittide_fused`` library's last accepted
+    launch, in :func:`fused_plan`'s terms."""
+    out = (ctypes.c_int * 9)()
+    _library("bittide_fused").bittide_fused_plan(out)
+    warp, slots, g, ctas, threads, smem, a_in_smem, per_warp, regs = \
+        list(out)
+    return dict(path="warp" if warp else "block",
+                aggregation="lists" if slots else "dense",
+                registers=bool(regs), draws_per_cta=g,
+                draws_per_warp=per_warp, ctas=ctas,
+                threads=threads, list_slots=slots,
+                a_in_smem=bool(a_in_smem), smem_bytes=smem)
+
+
+def sparse_device_plan() -> dict:
+    """The plan of the built ``bittide_sparse`` library's last accepted
+    call, in :func:`sparse_launch_plan`'s terms."""
+    out = (ctypes.c_int * 6)()
+    _library("bittide_sparse").bittide_sparse_plan(out)
+    grouped, tile, g, tiles, groups, k = list(out)
+    return dict(grouped=bool(grouped), nodes_per_cta=tile,
+                draws_per_thread=g, grid=(tiles, groups), threads=tile,
+                slots=k)
 
 
 def _ring_smem_bytes(width: int, tile_j: int) -> int:
@@ -336,7 +472,9 @@ def bittide_fused(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
                   record_guard: bool = False,
                   guard_lo: Optional[torch.Tensor] = None,
                   guard_hi: Optional[torch.Tensor] = None,
-                  guard_stop: Optional[int] = None) -> EngineOutputs:
+                  guard_stop: Optional[int] = None,
+                  lists: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> EngineOutputs:
     """Advance ``num_records * record_every`` control periods in one launch.
 
     Args:
@@ -354,6 +492,8 @@ def bittide_fused(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
       record_beta / record_watermarks / record_guard: the kernel variants.
       guard_lo, guard_hi: (B,) guard band in frames per unit degree, and
         guard_stop: the last record to run (an int) — with record_guard.
+      lists: :func:`row_lists` of ``a_t``, for a caller that launches
+        many times on one stack; None builds them here (on the card).
 
     All tensors float32, contiguous, on one device.  Returns
     :class:`EngineOutputs` — psi, nu (B, N); freq (R, B, N) ν records;
@@ -387,8 +527,19 @@ def bittide_fused(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
     if n > KERNEL_N_MAX:
         raise ValueError(f"the fused kernel holds at most {KERNEL_N_MAX} "
                          f"nodes per draw, got {n}")
-    plan = launch_plan(b, n, c, psi.device, guard=record_guard)
+    counts, terms = row_lists(a_t) if lists is None else lists
+    if (tuple(counts.shape) != (c, n) or terms.dim() != 3
+            or tuple(terms.shape[1:]) != (n, 2)
+            or counts.dtype != torch.int32 or terms.dtype != torch.int32
+            or counts.device != psi.device or terms.device != psi.device
+            or not (counts.is_contiguous() and terms.is_contiguous())):
+        raise ValueError("lists must be row_lists(a_t): (C, N) and (L, N, "
+                         "2) contiguous int32 tensors on psi's device")
+    plan = launch_plan(b, n, c, psi.device, terms.shape[0],
+                       guard=record_guard)
     g = plan["draws_per_cta"]
+    if not plan["list_slots"]:
+        counts = terms = None
     mask = (torch.ones((1, n), dtype=torch.float32, device=psi.device)
             if ctrl_mask is None else ctrl_mask)
     psi_out = torch.empty_like(psi)
@@ -400,10 +551,13 @@ def bittide_fused(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
 
     def launch(stop: int):
         rc = _library("bittide_fused").bittide_fused_launch(
-            _ptr(a_t), _ptr(psi), _ptr(nu), _ptr(nu_u), _ptr(kp),
+            _ptr(a_t), _ptr(terms), _ptr(counts),
+            _ptr(psi), _ptr(nu), _ptr(nu_u), _ptr(kp),
             _ptr(beta_off), _ptr(mask), mask.shape[0], _ptr(deg),
             _ptr(lamsum), _ptr(lat), float(dt_frames), b, n, c, num_records,
-            record_every, g, int(plan["a_in_smem"]), _ptr(psi_out),
+            record_every, int(plan["path"] == "warp"), g,
+            plan["draws_per_warp"], plan["list_slots"],
+            int(plan["registers"]), int(plan["a_in_smem"]), _ptr(psi_out),
             _ptr(nu_out), _ptr(freq), _ptr(beta),
             *(_ptr(x) for x in (wm if wm else (None,) * 4)),
             _ptr(guard_lo), _ptr(guard_hi), int(stop), _ptr(trip),
@@ -411,7 +565,7 @@ def bittide_fused(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
         if rc != 0:
             raise RuntimeError(
                 f"bittide_fused launch failed with CUDA error {rc} (B={b}, "
-                f"N={n}, C={c}, draws per CTA {g})")
+                f"N={n}, C={c}, plan {plan})")
         bittide_fused.launches += 1
 
     stop = int(guard_stop) if record_guard else num_records - 1

@@ -219,7 +219,7 @@ def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a_t, deg,
                   record_every: int, engine: str, record_beta: bool,
                   record_watermarks: bool, record_guard: bool = False,
                   guard_lo=None, guard_hi=None, guard_stop=None,
-                  lam_t=None) -> EngineOutputs:
+                  lam_t=None, lists=None) -> EngineOutputs:
     """One run of a dense lane: ``engine`` is the chosen lane ("fused",
     "tiled", or "ref" for the dense oracle).
 
@@ -229,7 +229,9 @@ def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a_t, deg,
     the dense λeff ``lam_t`` (same layout) instead of ``lamsum``.  With
     ``record_guard``, guard_lo / guard_hi (B,) and the int guard_stop feed
     the in-kernel guard (``EngineOutputs.guard_state``).  Watermarks are
-    (beta_abs_max, peak_record, nu_min, nu_max).
+    (beta_abs_max, peak_record, nu_min, nu_max).  ``lists``, the fused
+    kernel's :func:`~repro_torch.kernels.bittide_step.row_lists` of
+    ``a_t``, lets a caller that replays one stack build them once.
     """
     if engine == "ref":
         if record_guard:
@@ -251,14 +253,15 @@ def _fused_engine(psi, nu, nu_u, kp, beta_off, ctrl_mask, a_t, deg,
                 brec = None
         return EngineOutputs(psi=psi_f, nu=nu_f, freq=rec, beta=brec,
                              watermarks=wm)
-    kernel = {"fused": bittide_fused, "tiled": bittide_tiled}[engine]
+    kernel, extra = {"fused": (bittide_fused, dict(lists=lists)),
+                     "tiled": (bittide_tiled, {})}[engine]
     return kernel(psi, nu, nu_u, a_t, deg, lamsum, lat, kp, beta_off,
                   dt_frames, num_records=num_records,
                   record_every=record_every, ctrl_mask=ctrl_mask,
                   record_beta=record_beta,
                   record_watermarks=record_watermarks,
                   record_guard=record_guard, guard_lo=guard_lo,
-                  guard_hi=guard_hi, guard_stop=guard_stop)
+                  guard_hi=guard_hi, guard_stop=guard_stop, **extra)
 
 
 def _auto_is_sparse(topo: Topology, b: int,

@@ -84,8 +84,8 @@ from repro_torch.core.reframing import (ReframePolicy, edge_occupancy,
 from repro_torch.core.topology import Topology
 from repro_torch.kernels.api import EngineOptions, EngineOutputs
 from repro_torch.kernels.bittide_sparse import ellify
-from repro_torch.kernels.bittide_step import (TILE_J, select_engine,
-                                              sparse_tile)
+from repro_torch.kernels.bittide_step import (TILE_J, row_lists,
+                                              select_engine, sparse_tile)
 from repro_torch.kernels.ops import (_auto_is_sparse, _fused_engine,
                                      _host_watermarks, _lamsum_host,
                                      _perstep_engine, _resolve_mask,
@@ -354,7 +354,9 @@ class _DenseStacks:
     changed are touched — and dedupes identical parameter sets, so each
     unique stack is transferred and folded once per run however many
     chunks replay it.  No dense λeff tensor exists: the kernels fold λeff
-    into the per-node ``lamsum`` rows.
+    into the per-node ``lamsum`` rows.  The fused kernel's row lists are
+    built once per unique stack too, when a segment first runs on it
+    (:meth:`row_lists`).
     """
 
     def __init__(self, a_t: List, deg: List, classes, class_rows=None):
@@ -362,6 +364,16 @@ class _DenseStacks:
         self.deg = deg
         self.classes = classes          # (C,) shared class values, or None
         self.class_rows = class_rows    # (B, C) per-draw values, or None
+        self._lists = {}                # id of a stack in a_t -> its lists
+
+    def row_lists(self, seg_index: int):
+        """Segment ``seg_index``'s :func:`row_lists`, shared by every
+        segment on the same stack (``a_t`` holds the stacks, so their ids
+        stay theirs)."""
+        a_t = self.a_t[seg_index]
+        if id(a_t) not in self._lists:
+            self._lists[id(a_t)] = row_lists(a_t)
+        return self._lists[id(a_t)]
 
 
 def _build_dense_stacks(topo: Topology, comp, cfg: SimConfig,
@@ -445,6 +457,7 @@ def _prep_dense_segment(topo: Topology, links_seg: LinkParams, seg,
     beta_off = broadcast_gain(ctrl.beta_off, b, "beta_off")
     return dict(
         a_t=a_t, deg=stacks.deg[seg_index], lamsum=put(lamsum), lat=put(lat),
+        lists=stacks.row_lists(seg_index) if chosen == "fused" else None,
         mask=put(_resolve_mask(seg.ctrl_mask, b, n)),
         nu_u=put(ppm2d * np.float32(1e-6)), kp=put(kp),
         beta_off=put(beta_off), kp_host=kp, beta_off_host=beta_off,
@@ -839,7 +852,8 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                             prep["beta_off"], prep["mask"], prep["a_t"],
                             prep["deg"], prep["lamsum"], prep["lat"],
                             dt_frames, int(chunk), int(cfg.record_every),
-                            chosen, rb_dense, rw, **guard_kw)
+                            chosen, rb_dense, rw, lists=prep["lists"],
+                            **guard_kw)
                     psi_d, nu_d = out.psi, out.nu
                     trips = host(out.guard_state)[:, 0] if guard_on else None
                     tstar = int(trips.min()) if guard_on else chunk

@@ -7,10 +7,17 @@ import, so every pytest-xdist worker collects the same tests.  Inputs and
 bars come from ``chip_smoke.py`` (the card machine has no jax, so
 ``tests/engine_harness.py`` cannot be imported there;
 ``test_torch_package_rules`` checks that the bars agree): its
-``PARITY_CASES`` — FC8 at B=64 and at 4·SMs·3 + 5 draws (three draws per
-CTA, a partial last CTA), torus3d(6) at B=16 with two latency classes (A
-read from L2) and with one (A in shared memory) — with per-draw kp / lat
-/ lamsum / holdover mask, 400 periods recorded every 20.  The kernel
+``PARITY_CASES`` — FC8 at B=64 and at 4·SMs·3 + 5 draws (the warp path:
+several warps per CTA, a partial last CTA) with two latency classes (row
+lists) and with one (the dense loop), torus3d(6) at B=16 with two
+classes and with one (the block path's row lists), fully_connected(64)
+(the block path's dense loop, A in shared memory), fully_connected(16)
+with two classes (the warp path's), torus3d(3) with one
+class and with two (lanes past a warp's draw) — with per-draw kp /
+lat / lamsum / holdover mask, 400 periods recorded every 20; the
+library reports the plan Python computed; one ψ seeded inf
+(``NONFINITE_CASES``) gives the plain version's inf / NaN pattern bit
+for bit, watermarks included.  The kernel
 performs the plain version's float32 operations in the same order, so
 the results are held to ``FREQ_ATOL_PPM`` / ``BETA_ATOL_FRAMES`` and
 watermark indices exactly.  The tiled kernel runs ``TILED_PARITY_CASES``
@@ -25,10 +32,13 @@ chunk.  Guard runs are compared over the records up to the earliest trip,
 with trip records exactly equal.  The sparse kernel runs
 ``SPARSE_PARITY_CASES`` (FC8, random_regular(300, 3, 0) at B=9, the
 ragged bounded_degree_topo(96, 4, 3), the same with K + 2 padded slots,
-per-draw tables with dropped links) in every variant and with the guard,
-at 0.0 error; a draw's bits do not depend on the batch (alone and in a
-batch of 1,024) nor on whether its tables are shared or per-draw; the
-guard freezes the whole batch at the earliest trip.  The per-step kernel
+per-draw tables with dropped links — the direct pass — and torus3d(21)
+at B=235, the grouped pass) in every variant and with the guard, at 0.0
+error, the library reporting the plan Python computed and refusing one
+it cannot run (the fused library too); a draw's bits do
+not depend on the batch nor on the pass (alone, and in a direct batch of
+1,024 and a grouped batch of 235) nor on whether its tables are shared
+or per-draw; the guard freezes the whole batch at the earliest trip.  The per-step kernel
 runs ``PERSTEP_PARITY_CASES`` (FC8, FC8 with two classes, the ragged
 torus3d(7) with holdover, torus3d(6) with one class and with three) in
 every variant and with the guard, at 0.0
@@ -48,9 +58,9 @@ import repro_torch.core as tc  # noqa: E402
 import repro_torch.kernels as tk  # noqa: E402
 from repro_torch.kernels.bittide_sparse import (  # noqa: E402
     bittide_sparse, bittide_sparse_torch)
-from repro_torch.kernels.bittide_step import (bittide_fused,  # noqa: E402
-                                              bittide_fused_torch,
-                                              bittide_tiled, launch_plan)
+from repro_torch.kernels.bittide_step import (  # noqa: E402
+    bittide_fused, bittide_fused_torch, bittide_tiled, fused_device_plan,
+    sparse_device_plan, sparse_launch_plan)
 from repro_torch.scenarios import (LatencyStep, Scenario,  # noqa: E402
                                    edges_between, run_scenario)
 from repro_torch.telemetry import Telemetry  # noqa: E402
@@ -80,8 +90,7 @@ _PER_DRAW = (0, 1, 2, 5, 6, 7, 8)
                                      (False, True), (True, True)],
                          ids=["nu", "beta", "wm", "beta+wm"])
 @pytest.mark.parametrize("case", chip_smoke.PARITY_CASES,
-                         ids=["fc8", "fc8_waves", "torus3d_6",
-                              "torus3d_6_one_class"])
+                         ids=list(chip_smoke.PARITY_IDS))
 def test_kernel_matches_plain_version(cuda, case, variant):
     _, args, mask = chip_smoke.parity_inputs(case, cuda)
     kw = dict(num_records=20, record_every=20, ctrl_mask=mask,
@@ -105,27 +114,81 @@ def test_kernel_matches_plain_version(cuda, case, variant):
 
 
 def test_draw_result_independent_of_batch(cuda):
-    """Draw b's bits do not depend on B or on the CTA that ran it: draws
-    5-8 (spread over two CTAs of three draws) and the two live draws of
-    the partial last CTA equal the same draws run alone, one per CTA."""
+    """Draw b's bits do not depend on B or on the CTA and warp lanes that
+    ran it: draws 5-8 (two warps' lanes) and the two live draws of the
+    partial last CTA equal the same draws run alone, one per launch."""
     _, args, mask = chip_smoke.parity_inputs(("fully_connected_8", "waves",
                                               2), cuda)
     b = args[0].shape[0]
-    plan = launch_plan(b, 8, 2, cuda)
+    plan = chip_smoke.fused_plan_of(args, cuda)
+    assert plan["path"] == "warp", plan
     assert plan["draws_per_cta"] > 1 and b % plan["draws_per_cta"], plan
-    idx = torch.tensor([5, 6, 7, 8, b - 2, b - 1], device=cuda)
-    assert launch_plan(len(idx), 8, 2, cuda)["draws_per_cta"] == 1
     kw = dict(num_records=5, record_every=20, record_beta=True,
               record_watermarks=True)
     full = bittide_fused(*args, ctrl_mask=mask, **kw)
-    sub = [x[idx].contiguous() if k in _PER_DRAW else x
-           for k, x in enumerate(args)]
-    part = bittide_fused(*sub, ctrl_mask=mask[idx].contiguous(), **kw)
-    assert torch.equal(full.freq[:, idx], part.freq)
-    assert torch.equal(full.beta[:, idx], part.beta)
-    assert torch.equal(full.psi[idx], part.psi)
-    for got, want in zip(full.watermarks, part.watermarks):
-        assert torch.equal(got[idx], want)
+    for d in (5, 6, 7, 8, b - 2, b - 1):
+        sub = [x[d:d + 1].contiguous() if k in _PER_DRAW else x
+               for k, x in enumerate(args)]
+        one = bittide_fused(*sub, ctrl_mask=mask[d:d + 1].contiguous(),
+                            **kw)
+        assert torch.equal(full.freq[:, d:d + 1], one.freq)
+        assert torch.equal(full.beta[:, d:d + 1], one.beta)
+        assert torch.equal(full.psi[d:d + 1], one.psi)
+        for got, want in zip(full.watermarks, one.watermarks):
+            assert torch.equal(got[d:d + 1], want)
+
+
+@pytest.mark.parametrize("guard", [False, True], ids=["plain", "guard"])
+@pytest.mark.parametrize("case", chip_smoke.PARITY_CASES,
+                         ids=list(chip_smoke.PARITY_IDS))
+def test_fused_library_reports_the_launch_plan(cuda, case, guard):
+    """The built library launched the plan Python computed (path, row
+    lists or dense loop, draws per CTA, CTAs, threads, shared bytes)."""
+    _, args, mask = chip_smoke.parity_inputs(case, cuda)
+    b = args[0].shape[0]
+    kw = dict(num_records=2, record_every=3, ctrl_mask=mask)
+    if guard:
+        band = torch.full((b,), 1e9, device=cuda)
+        kw.update(record_guard=True, guard_lo=-band, guard_hi=band,
+                  guard_stop=1)
+    bittide_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert fused_device_plan() == chip_smoke.fused_plan_of(args, cuda,
+                                                           guard=guard)
+
+
+@pytest.mark.parametrize("bad", [
+    ("fully_connected_8", 64, 2, dict(draws_per_warp=3)),
+    ("fully_connected_8", 64, 2, dict(registers=True, list_slots=9)),
+    ("fully_connected_8", 64, 2, dict(registers=False)),
+    ("fully_connected_64", 16, 1, dict(path="warp"))],
+    ids=["draws_per_warp", "too_many_terms", "lists_outside_registers",
+         "warp_beyond_32_nodes"])
+def test_fused_library_refuses_a_plan_it_cannot_run(cuda, monkeypatch, bad):
+    """The C entry point checks the plan it is handed and launches nothing
+    on one it cannot run."""
+    import repro_torch.kernels.bittide_step as bs
+    *case, change = bad
+    _, args, mask = chip_smoke.parity_inputs(tuple(case), cuda)
+    real = bs.launch_plan
+    monkeypatch.setattr(bs, "launch_plan",
+                        lambda *a, **k: dict(real(*a, **k), **change))
+    before = bittide_fused.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bittide_fused(*args, num_records=2, record_every=3, ctrl_mask=mask)
+    assert bittide_fused.launches == before
+
+
+@pytest.mark.parametrize("case", chip_smoke.NONFINITE_CASES,
+                         ids=list(chip_smoke.NONFINITE_IDS))
+def test_fused_nonfinite_state_matches_plain_version(cuda, case):
+    """A draw whose ψ starts at +inf: its period votes send the kernel to
+    the dense loop, so ν, β, ψ, ν', the watermarks and the guard's trips
+    equal the plain version's bit for bit, inf and NaN at the same
+    places; the other draws stay finite."""
+    rows = chip_smoke.fused_nonfinite_rows(case, cuda)
+    assert len(rows) == 4
+    assert all(r["nonfinite_values"] > 0 for r in rows)
 
 
 def test_main_path_runs_on_the_card(cuda):
@@ -268,9 +331,7 @@ _SPARSE_KW = dict(num_records=chip_smoke.SPARSE_RECORDS,
                          ids=["nu", "beta", "wm", "beta+wm", "guard_trips",
                               "guard_quiet"])
 @pytest.mark.parametrize("case", chip_smoke.SPARSE_PARITY_CASES,
-                         ids=["fc8", "random_regular_300",
-                              "bounded_degree_96", "bounded_degree_96_k+2",
-                              "per_draw_dropped"])
+                         ids=list(chip_smoke.SPARSE_PARITY_IDS))
 def test_sparse_kernel_matches_plain_version(cuda, case, variant):
     _, args, mask = chip_smoke.sparse_parity_inputs(case, cuda)
     b = args[0].shape[0]
@@ -290,14 +351,19 @@ def test_sparse_kernel_matches_plain_version(cuda, case, variant):
     chip_smoke.kernel_vs_plain(got, want, records=records, exact=True)
 
 
-def test_sparse_draw_bits_independent_of_batch(cuda):
-    """Draws run alone equal their rows of a batch of 1,024, bit for bit,
-    every variant on."""
-    _, args, mask = chip_smoke.sparse_parity_inputs(
-        ("random_regular_300", 1024, "shared"), cuda)
+@pytest.mark.parametrize("case,grouped", [
+    (("random_regular_300", 1024, "shared"), False),
+    (("torus3d_21", 235, "shared"), True)], ids=["direct", "grouped"])
+def test_sparse_draw_bits_independent_of_batch(cuda, case, grouped):
+    """Draws run alone (the direct pass) equal their rows of a batch, bit
+    for bit, every variant on: a direct batch of 1,024 and a grouped batch
+    of 235 (8 draws per thread, the last group of 3)."""
+    _, args, mask = chip_smoke.sparse_parity_inputs(case, cuda)
+    b = args[0].shape[0]
     kw = dict(_SPARSE_KW, record_beta=True, record_watermarks=True)
     full = bittide_sparse(*args, ctrl_mask=mask, **kw)
-    for d in (0, 511, 1023):
+    assert sparse_device_plan()["grouped"] == grouped
+    for d in (0, b // 2, b - 1):
         sub = [x[d:d + 1].contiguous() if k in _SPARSE_PER_DRAW else x
                for k, x in enumerate(args)]
         one = bittide_sparse(*sub, ctrl_mask=mask[d:d + 1].contiguous(),
@@ -307,6 +373,42 @@ def test_sparse_draw_bits_independent_of_batch(cuda):
         assert torch.equal(full.psi[d:d + 1], one.psi)
         for got, want in zip(full.watermarks, one.watermarks):
             assert torch.equal(got[d:d + 1], want)
+
+
+@pytest.mark.parametrize("case", chip_smoke.SPARSE_PARITY_CASES,
+                         ids=list(chip_smoke.SPARSE_PARITY_IDS))
+def test_sparse_library_reports_the_launch_plan(cuda, case):
+    """The built library ran the plan Python computed: grouped for the
+    shared torus3d(21) x 235 tables, direct for the rest."""
+    _, args, mask = chip_smoke.sparse_parity_inputs(case, cuda)
+    b, n = args[0].shape
+    bittide_sparse(*args, ctrl_mask=mask, **_SPARSE_KW)
+    torch.cuda.synchronize()
+    plan = sparse_launch_plan(b, n, int(args[3].shape[0]),
+                              args[4].shape[0] == args[5].shape[0] == 1)
+    assert sparse_device_plan() == plan
+    assert plan["grouped"] == (case[0] == "torus3d_21")
+
+
+@pytest.mark.parametrize("bad", [
+    ("per_draw_dropped", dict(grouped=True, draws_per_thread=3,
+                              grid=(2, 3))),
+    ("shared", dict(draws_per_thread=2)),
+    ("shared", dict(nodes_per_cta=48, threads=48))],
+    ids=["grouped_per_draw_tables", "direct_two_draws", "ragged_tile"])
+def test_sparse_library_refuses_a_plan_it_cannot_run(cuda, monkeypatch, bad):
+    """The C entry point checks the plan it is handed and launches nothing
+    on one it cannot run."""
+    import repro_torch.kernels.bittide_sparse as mod
+    tables, change = bad
+    _, args, mask = chip_smoke.sparse_parity_inputs(
+        ("random_regular_300", 9, tables), cuda)
+    monkeypatch.setattr(mod, "sparse_launch_plan",
+                        lambda *a: dict(sparse_launch_plan(*a), **change))
+    before = bittide_sparse.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bittide_sparse(*args, ctrl_mask=mask, **_SPARSE_KW)
+    assert bittide_sparse.launches == before
 
 
 def test_sparse_shared_and_per_draw_tables_equal(cuda):

@@ -505,3 +505,141 @@ def test_float32_floor_at_the_quickstart_gain_is_the_reference_s():
                       (port_ss.freq_ppm, ref_ss.freq_ppm),
                       (port_f[0], ref_f[0])):
         assert_freq_parity(got, want, atol=floor)
+
+
+def _list_stacks():
+    """(name, a_t) of FC8, torus3d(6) and the two-class FC8 (the 1000 m
+    spool on the pair (0, 1)), each densified by the port, plus FC8 with
+    random positive weights and −0.0 in its zero positions."""
+    from repro_torch.kernels import densify
+    rng = np.random.default_rng(11)
+    out = []
+    for name, topo, links in (
+            ("fc8", tc.fully_connected(8), None),
+            ("torus3d_6", tc.torus3d(6), None),
+            ("fc8_two_classes", tc.fully_connected(8), "spool")):
+        links = (_two_class_links(topo) if links else
+                 tc.make_links(topo, cable_m=2.0))
+        out.append((name, densify(topo, links, device="cpu")[0]))
+    a_t = out[0][1].clone()
+    zero = a_t == 0
+    a_t = torch.where(zero, torch.full_like(a_t, -0.0), a_t * torch.as_tensor(
+        rng.uniform(0.1, 3.0, a_t.shape), dtype=torch.float32))
+    out.append(("fc8_weighted_negative_zeros", a_t))
+    return out
+
+
+def _split_terms(terms):
+    """row_lists' (L, N, 2) table as its source nodes and coefficients."""
+    return (terms[..., 0].contiguous(),
+            terms[..., 1].contiguous().view(torch.float32))
+
+
+def _list_sum(counts, terms, xs):
+    """Σ_c Σ over the listed terms of each class, in the fused kernel's
+    order: classes in order, row i's slots from its class offset on,
+    part = part + a·x per term, acc = acc + part per class."""
+    idx, coef = _split_terms(terms)
+    b, n = xs[0].shape
+    offs = torch.cumsum(counts, dim=0) - counts          # (C, N) offsets
+    rows = torch.arange(n)
+    acc = torch.zeros(b, n)
+    for c, x in enumerate(xs):
+        part = torch.zeros(b, n)
+        for m in range(int(counts[c].max())):
+            slot = (offs[c] + m).clamp(max=idx.shape[0] - 1)
+            j, a = idx[slot, rows].long(), coef[slot, rows]
+            part = torch.where(m < counts[c], part + a * x[:, j], part)
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("case", range(4), ids=[
+    "fc8", "torus3d_6", "fc8_two_classes", "fc8_weighted_negative_zeros"])
+def test_row_lists_hold_exactly_the_nonzeros_in_order(case):
+    """row_lists: row i's slots hold class 0's nonzero A[0, i, j] with j
+    ascending, then class 1's, ...; counts per (class, row); the slots
+    past a row's terms hold (i, 0.0); L is the longest row (at least 1)."""
+    from repro_torch.kernels.bittide_step import row_lists
+    _, a_t = _list_stacks()[case]
+    counts, terms = row_lists(a_t)
+    c, n, _ = a_t.shape
+    assert counts.dtype == terms.dtype == torch.int32
+    assert terms.is_contiguous()
+    assert terms.shape == (max(1, int(counts.sum(0).max())), n, 2)
+    idx, coef = _split_terms(terms)
+    for i in range(n):
+        k = 0
+        for cls in range(c):
+            nz = torch.nonzero(a_t[cls, :, i] != 0)[:, 0]
+            assert int(counts[cls, i]) == len(nz)
+            assert torch.equal(idx[k:k + len(nz), i].long(), nz)
+            assert torch.equal(coef[k:k + len(nz), i], a_t[cls, nz, i])
+            k += len(nz)
+        assert (idx[k:, i] == i).all() and (coef[k:, i] == 0).all()
+
+
+@pytest.mark.parametrize("case", range(4), ids=[
+    "fc8", "torus3d_6", "fc8_two_classes", "fc8_weighted_negative_zeros"])
+def test_row_list_sums_equal_the_dense_sum_bit_for_bit(case):
+    """Summing only the listed terms in the kernel's order gives
+    _aggregate's dense sum bit for bit on finite states: random values
+    over twelve decades, +0 and −0 entries, and pairs that cancel
+    exactly (x_j = −x_k), for every class."""
+    from repro_torch.kernels.bittide_step import _aggregate, row_lists
+    _, a_t = _list_stacks()[case]
+    rng = np.random.default_rng(case)
+    c, n, _ = a_t.shape
+    b = 64
+    xs = []
+    for _ in range(c):
+        x = rng.standard_normal((b, n)) * 10.0 ** rng.uniform(-6, 6, (b, n))
+        x[rng.random((b, n)) < 0.1] = 0.0
+        x[rng.random((b, n)) < 0.1] = -0.0
+        half = n // 2
+        pair = rng.random(b) < 0.5
+        x[pair, half:2 * half] = -x[pair, :half]
+        xs.append(torch.as_tensor(x, dtype=torch.float32))
+    want = _aggregate(a_t, xs)
+    got = _list_sum(*row_lists(a_t), xs)
+    assert torch.isfinite(want).all()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_row_lists_are_built_once_per_stack(monkeypatch):
+    """run_scenario builds the fused kernel's row lists once per unique
+    stack — a swap and its swap back share one — however many segments
+    and chunks replay it, and hands every fused call its stack's lists."""
+    from repro_torch.kernels import bittide_step as bs
+    from repro_torch.scenarios import (LatencyStep, Scenario, edges_between,
+                                       run_scenario, runner)
+    built, calls = [], []
+
+    def counting(a_t):
+        built.append(bs.row_lists(a_t))
+        return built[-1]
+
+    def spy(*args, lists=None, **kw):
+        calls.append((args[6], lists))
+        return real(*args, lists=lists, **kw)
+
+    real = runner._fused_engine
+    monkeypatch.setattr(runner, "row_lists", counting)
+    monkeypatch.setattr(runner, "_fused_engine", spy)
+    topo = tc.fully_connected(8)
+    swap = edges_between(topo, 0, 2)
+    sc = Scenario(events=(LatencyStep(t=0.048, edges=swap, cable_m=1000.0),
+                          LatencyStep(t=0.144, edges=swap, cable_m=2.0)))
+    ppm = np.random.default_rng(7).uniform(-8, 8, (2, 8)).astype(np.float32)
+    run_scenario(topo, tc.make_links(topo, cable_m=2.0),
+                 tc.ControllerConfig(kp=2e-8), ppm, sc,
+                 tc.SimConfig(dt=1e-3, steps=240, record_every=12),
+                 options=tk.EngineOptions(engine="fused", chunk_records=4),
+                 device="cpu")
+    assert len(built) == 2
+    assert len(calls) == 5          # segments of 4, 8 and 8 records
+    for a_t, lists in calls:
+        assert any(lists is b for b in built)
+        want = bs.row_lists(a_t)
+        assert torch.equal(lists[0], want[0])
+        assert torch.equal(lists[1], want[1])
