@@ -53,6 +53,12 @@ Phases, one JSON object per line:
               draw each; every variant and the guard
               tripping at a mid record and never; 0.0 error, and the
               launches the C loop made.
+              The tiled, sparse (direct and grouped) and per-step kernels
+              on a diverged draw (``STREAM_NONFINITE_CASES``): ψ seeded
+              inf, and a gain that overflows after a record or more;
+              every variant bit for bit with the plain version, inf / NaN
+              at its places in ν, β, ψ and all four watermark arrays (the
+              diverging rows' records tell a NaN-dropping fold apart).
 3. fc8      — the main path at users' size: ``simulate_ensemble_dense`` on
               fully_connected(8), B=4096 draws in ±8 ppm, kp=2e-8,
               dt=5e-5, 10,000 steps recorded every 20, β + watermarks;
@@ -145,6 +151,30 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               identical to the fused lane's.  (d) examples/quickstart.py's
               flow: ``BittideNetwork.sync`` converges; the RTT table and
               the logical latency 0 → 1.
+
+11. serve   — the bittide-paced serving simulator on the card.  (a)
+              examples/serve_bittide.py at its full default: ring(8)
+              workers at ``default_rng(7)`` speeds in ±50,000 ppm, the
+              example's mid-serve faults over 60 s (FreqStep, DriftRamp,
+              NodeHoldover / NodeReset, LinkDrop / LinkRestore),
+              ``pace_workers`` (kp 5e-3, 10 steps/s, records every 5) on
+              segment-sum and on the fused lane, 8 rps of diurnal +
+              burst arrivals, smollm-135m with 8 slots at hw_flops 1e12,
+              ``ServeConfig(8, 64, slo_s=30)``, queue depth 16; every
+              discipline served on each lane.  (b) the ``serving_goodput``
+              lane's configuration (benchmarks/serving_bench.py: 30 s, 6
+              rps, its four events) on the fused lane.  (c)
+              ``simulate_stragglers`` at tests/test_ft_straggler.py's case
+              (ring(4), ±50,000 ppm on neighbours, 100 s), PI and
+              proportional.  Every fused engine call held against the plain
+              version at 0.0 error and timed with CUDA events; the fused
+              lane's ν within ``float32_floor_ppm`` of segment-sum; bittide
+              goodput ≥ barrier and p99 ≤ barrier in (a) and (b); request
+              conservation at every tick, equal fingerprints on a second
+              serve; in (c) the controlled peak under a fifth of the
+              uncontrolled, the spread under 1e-3, ``bounded``.  The walls:
+              each pace (its engine calls by the flight recorder, and the
+              rest) and each discipline's serve.
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -324,6 +354,32 @@ SPARSE_RECORDS, SPARSE_EVERY = 6, 5
 PERSTEP_PARITY_CASES = ("fc8", "fc8_spool", "torus3d_7", "torus3d_6",
                         "torus3d_6_three_classes")
 PERSTEP_RECORDS, PERSTEP_EVERY = 6, 4
+# The tiled, sparse and per-step kernels on a diverged draw, each case of
+# ``STREAM_NONFINITE_CASES`` with two seeds: "inf", draw 3's ψ at node 5
+# (the per-step kernel: node 5 of its one draw) started at +inf; and
+# "diverging", draw 3's gain at ``DIVERGING_KP`` (the per-step kernel: its
+# one gain), so that the draw runs finite for a record or more and then
+# overflows to inf and NaN.  ν, β, ψ, ν', the four watermark arrays and
+# the guard's trips must equal the plain version's, inf and NaN at the same
+# places.  With a NaN arriving after record 0 a fold that drops NaN (fmaxf
+# / fminf) leaves a finite watermark where torch.maximum / minimum keep
+# NaN; the "diverging" rows check that their records tell the two apart.
+# Sparse: random_regular(300) with shared and with per-draw tables (the
+# direct pass) and torus3d(21) × 235 (the grouped pass).
+STREAM_NONFINITE_CASES = (
+    ("bittide_tiled", ("torus3d_8", 9, 1)),
+    ("bittide_tiled", ("torus3d_7", 5, 2)),
+    ("bittide_sparse", ("random_regular_300", 9, "shared")),
+    ("bittide_sparse", ("random_regular_300", 9, "per_draw_dropped")),
+    ("bittide_sparse", ("torus3d_21", 235, "shared")),
+    ("bittide_step", "fc8"),
+    ("bittide_step", "torus3d_7"))
+STREAM_NONFINITE_IDS = ("tiled_torus3d_8", "tiled_torus3d_7_two_classes",
+                        "sparse_rr300_direct", "sparse_per_draw_direct",
+                        "sparse_torus3d_21_grouped", "perstep_fc8",
+                        "perstep_torus3d_7")
+DIVERGING_KP = {"bittide_tiled": 1e-2, "bittide_sparse": 1e-4,
+                "bittide_step": 1e-3}
 
 
 def bounded_degree_topo(n, max_deg, seed=0, isolated=0, leaves=0):
@@ -800,6 +856,10 @@ def phase_parity(dev):
     tiled_parity(dev, note)
     sparse_parity(dev, note)
     perstep_parity(dev, note)
+    for kernel, case in STREAM_NONFINITE_CASES:
+        for seed in ("inf", "diverging"):
+            for row in stream_nonfinite_rows(kernel, case, seed, dev):
+                note(kernel, row)
     return worst
 
 
@@ -976,6 +1036,133 @@ def perstep_parity(dev, note):
             note("bittide_step", row)
         assert trips[0] < PERSTEP_RECORDS - 1 and \
             trips[1] == PERSTEP_RECORDS, trips
+
+
+def nan_fold_differs(out) -> bool:
+    """Whether folding ``out``'s β and ν records with fmax / fmin (which
+    drop NaN, as CUDA's fmaxf / fminf do) gives other watermarks than
+    torch.maximum / minimum: True when a NaN first arrives after record 0
+    at a place whose running value was not NaN."""
+    import torch
+    beta, freq = out.beta, out.freq
+
+    def fold(mx, mn):
+        acc = [beta[0].abs(), freq[0], freq[0]]
+        for t in range(1, beta.shape[0]):
+            acc = [mx(acc[0], beta[t].abs()), mn(acc[1], freq[t]),
+                   mx(acc[2], freq[t])]
+        return acc
+    keep = fold(torch.maximum, torch.minimum)
+    drop = fold(torch.fmax, torch.fmin)
+    return any(not torch.equal(torch.isnan(k), torch.isnan(d))
+               for k, d in zip(keep, drop))
+
+
+def stream_nonfinite_inputs(kernel, case, seed, dev):
+    """The inputs of one case of ``STREAM_NONFINITE_CASES`` with ``seed``
+    "inf" or "diverging": (topology, seeded kernel args, kw, the guard
+    variant — bands from the unseeded run that trip the finite draws at
+    different records —, the kernel, its plain version, the sparse
+    kernel's plan or None)."""
+    from repro_torch.kernels.bittide_sparse import (bittide_sparse,
+                                                    bittide_sparse_torch)
+    from repro_torch.kernels.bittide_step import (bittide_fused_torch,
+                                                  bittide_perstep,
+                                                  bittide_perstep_torch,
+                                                  bittide_tiled,
+                                                  sparse_launch_plan)
+    d, i = NONFINITE_SEED
+    plan = None
+    if kernel == "bittide_tiled":
+        topo, args, mask = parity_inputs(case, dev, one_way=True)
+        kw = dict(num_records=TILED_RECORDS, record_every=TILED_EVERY,
+                  ctrl_mask=mask)
+        b = args[0].shape[0]
+        band = trip_bands(args, kw, [1 + k % 3 for k in range(b)])
+        trip = dict(record_beta=True, record_watermarks=True,
+                    record_guard=True, guard_lo=-band, guard_hi=band,
+                    guard_stop=TILED_RECORDS - 1)
+        fn, plain = bittide_tiled, bittide_fused_torch
+    elif kernel == "bittide_sparse":
+        topo, args, mask = sparse_parity_inputs(case, dev)
+        kw = dict(num_records=SPARSE_RECORDS, record_every=SPARSE_EVERY,
+                  ctrl_mask=mask)
+        b = args[0].shape[0]
+        trip = sparse_variants(args, kw, b)[4]
+        plan = sparse_launch_plan(b, topo.num_nodes, int(args[3].shape[0]),
+                                  args[4].shape[0] == args[5].shape[0] == 1)
+        fn, plain = bittide_sparse, bittide_sparse_torch
+    else:
+        topo, args, mask = perstep_inputs(case, dev)
+        kw = dict(num_records=PERSTEP_RECORDS, record_every=PERSTEP_EVERY,
+                  ctrl_mask=mask)
+        trip = perstep_variants(args, kw)[4]
+        fn, plain = bittide_perstep, bittide_perstep_torch
+    seeded = list(args)
+    if seed == "inf":
+        psi = args[0].clone()
+        psi[(d, i) if psi.dim() == 2 else i] = float("inf")
+        seeded[0] = psi
+    elif kernel == "bittide_step":
+        seeded[7] = DIVERGING_KP[kernel]
+    else:
+        kp = args[7].clone()
+        kp[d] = DIVERGING_KP[kernel]
+        seeded[7] = kp
+    return topo, seeded, kw, trip, fn, plain, plan
+
+
+def stream_nonfinite_rows(kernel, case, seed, dev):
+    """One case of ``STREAM_NONFINITE_CASES`` with ``seed`` "inf" or
+    "diverging": every variant (the four and the guard tripping the finite
+    draws at different records) against the plain version, bit for bit
+    with identical inf / NaN positions, the sparse kernel by the plan
+    Python computed.  The seeded draw goes non-finite (the guard variant
+    aside: a diverging draw may trip first) and every other draw stays
+    finite; a "diverging" row's records tell a NaN-dropping fold from the
+    plain version's.  Returns one row per variant."""
+    import torch
+    from repro_torch.kernels.bittide_step import sparse_device_plan
+    d, i = NONFINITE_SEED
+    topo, seeded, kw, trip, fn, plain, plan = stream_nonfinite_inputs(
+        kernel, case, seed, dev)
+    b = 1 if seeded[0].dim() == 1 else seeded[0].shape[0]
+    rows = []
+    for v in [dict(record_beta=beta, record_watermarks=wm)
+              for beta, wm in ((False, False), (True, False), (False, True),
+                               (True, True))] + [trip]:
+        got = fn(*seeded, **kw, **v)
+        torch.cuda.synchronize()
+        if plan is not None:
+            assert sparse_device_plan() == plan, (sparse_device_plan(), plan)
+        want = plain(*seeded, **kw, **v)
+        records = None
+        guard = v.get("record_guard", False)
+        if guard:
+            records = min(int(want.guard_state.min()), v["guard_stop"]) + 1
+        row = dict(phase="parity", kernel=kernel, nonfinite_seed=seed,
+                   seeded=[d, i] if b > 1 else [i], topology=topo.name,
+                   draws=b, beta=v["record_beta"],
+                   watermarks=v["record_watermarks"], guard=guard)
+        if plan is not None:
+            row["launch_plan"] = plan
+        row.update(nonfinite_vs_plain(got, want, records))
+        fin = torch.isfinite(got.freq[:records])
+        if b == 1:
+            row["seeded_draw_nonfinite"] = not bool(fin.all())
+            row["other_draws_finite"] = True
+        else:
+            fin = fin.all(dim=2).all(dim=0)
+            row["seeded_draw_nonfinite"] = not bool(fin[d])
+            row["other_draws_finite"] = bool(
+                fin[torch.arange(b, device=fin.device) != d].all())
+        assert row["other_draws_finite"], row
+        assert guard or row["seeded_draw_nonfinite"], row
+        if v["record_beta"] and v["record_watermarks"] and not guard:
+            row["nan_dropping_fold_differs"] = nan_fold_differs(want)
+            assert seed == "inf" or row["nan_dropping_fold_differs"], row
+        rows.append(row)
+    return rows
 
 
 def timed(fn):
@@ -1313,28 +1500,34 @@ def hold_sparse_calls(calls) -> dict:
     return worst
 
 
-def hold_engine_calls(calls, max_records: int) -> dict:
+def dense_call_args(a):
+    """(args, kw) of ``bittide_fused`` / ``bittide_tiled`` for one recorded
+    ``_fused_engine`` call."""
+    args = (a["psi"], a["nu"], a["nu_u"], a["a_t"], a["deg"], a["lamsum"],
+            a["lat"], a["kp"], a["beta_off"], a["dt_frames"])
+    kw = dict(num_records=a["num_records"], record_every=a["record_every"],
+              ctrl_mask=a["ctrl_mask"], record_beta=a["record_beta"],
+              record_watermarks=a["record_watermarks"],
+              record_guard=a["record_guard"], guard_lo=a["guard_lo"],
+              guard_hi=a["guard_hi"], guard_stop=a["guard_stop"])
+    return args, kw
+
+
+def hold_engine_calls(calls, max_records: int, exact: bool = False) -> dict:
     """Hold each recorded engine call against the plain version on the
     call's own inputs (B, N, C, variant, guard band and stop cap): the
     call's own outputs when it ran at most ``max_records`` records, else
     the kernel launched again on its inputs for its first ``max_records``
-    records.  Raises when one leaves its bar (``kernel_vs_plain``);
-    returns per kernel the worst errors and the number of calls held."""
+    records.  Raises when one leaves its bar (``kernel_vs_plain``; with
+    ``exact``, any error but 0.0); returns per kernel the worst errors and
+    the number of calls held."""
     from repro_torch.kernels.bittide_step import (bittide_fused,
                                                   bittide_fused_torch,
                                                   bittide_tiled)
     worst = {}
     for a, out in calls:
         name = "bittide_" + a["engine"]
-        args = (a["psi"], a["nu"], a["nu_u"], a["a_t"], a["deg"],
-                a["lamsum"], a["lat"], a["kp"], a["beta_off"],
-                a["dt_frames"])
-        kw = dict(num_records=a["num_records"],
-                  record_every=a["record_every"], ctrl_mask=a["ctrl_mask"],
-                  record_beta=a["record_beta"],
-                  record_watermarks=a["record_watermarks"],
-                  record_guard=a["record_guard"], guard_lo=a["guard_lo"],
-                  guard_hi=a["guard_hi"], guard_stop=a["guard_stop"])
+        args, kw = dense_call_args(a)
         if kw["num_records"] > max_records:
             kw["num_records"] = max_records
             if kw["record_guard"]:
@@ -1347,7 +1540,7 @@ def hold_engine_calls(calls, max_records: int) -> dict:
         valid = kw["num_records"]
         if kw["record_guard"]:
             valid = min(int(want.guard_state.min()), kw["guard_stop"]) + 1
-        err = kernel_vs_plain(out, want, records=valid)
+        err = kernel_vs_plain(out, want, records=valid, exact=exact)
         w = worst.setdefault(name, dict(calls=0, freq_ppm=0.0,
                                         beta_frames=0.0, psi_frames=0.0))
         w["calls"] += 1
@@ -2069,6 +2262,232 @@ def run_perstep(dev, tiled_res, scen, k=22, steps=2_000, rec=100,
     return out
 
 
+def serve_example_scenario(duration_s):
+    """examples/serve_bittide.py's ``build_scenario`` (copied: the example
+    imports the reference): a straggler onset, a thermal drift, a
+    holdover window and a link outage, at fractions of the horizon."""
+    from repro_torch.scenarios import (DriftRamp, FreqStep, LinkDrop,
+                                       LinkRestore, NodeHoldover, NodeReset,
+                                       Scenario)
+    f = lambda x: x * duration_s
+    return Scenario(events=(
+        FreqStep(t=f(0.15), nodes=(3,), delta_ppm=-80_000.0),
+        DriftRamp(t=f(0.35), t_end=f(0.55), nodes=(5,),
+                  rate_ppm_per_s=60_000.0 / duration_s),
+        NodeHoldover(t=f(0.45), nodes=(1,)),
+        NodeReset(t=f(0.65), nodes=(1,)),
+        LinkDrop(t=f(0.55), edges=(0,)),
+        LinkRestore(t=f(0.75), edges=(0,)),
+    ), name="serve-faults")
+
+
+def serving_bench_scenario():
+    """The ``serving_goodput`` lane's events
+    (benchmarks/serving_bench.py, copied)."""
+    from repro_torch.scenarios import (DriftRamp, FreqStep, NodeHoldover,
+                                       NodeReset, Scenario)
+    return Scenario(events=(
+        FreqStep(t=5.0, nodes=(3,), delta_ppm=-80_000.0),
+        DriftRamp(t=10.0, t_end=18.0, nodes=(5,), rate_ppm_per_s=4_000.0),
+        NodeHoldover(t=14.0, nodes=(1,)),
+        NodeReset(t=22.0, nodes=(1,)),
+    ), name="bench-serve-straggler")
+
+
+def pace_on_card(case, topo, speed, scenario, engine, duration_s):
+    """One ``pace_workers`` call on the card (its default device), the
+    fused kernel's count and the segment-sum run count set to 0 just
+    before and read just after; the wall split by the flight recorder
+    into the engine calls (its chunk spans) and the rest (the scenario's
+    compile, segment prep, record copies).  On the fused lane every
+    engine call is then held against the plain version at 0.0 error and
+    replayed under CUDA events.  Returns (PacedEnsemble, row)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.frame_model import RUN_COUNT
+    from repro_torch.kernels.bittide_step import bittide_fused
+    from repro_torch.serve import pace_workers
+    from repro_torch.telemetry import RunTrace
+    tr = RunTrace(name=f"pace-{engine}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bittide_fused.launches = 0
+    RUN_COUNT["segment-sum"] = 0
+    t0 = time.perf_counter()
+    with recorded_engine_calls() as calls:
+        pe = pace_workers(topo, speed, scenario, kp=5e-3,
+                          steps_per_second=10.0, duration_s=duration_s,
+                          record_every=5, engine=engine, trace=tr)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bittide_fused.launches
+    runs = RUN_COUNT["segment-sum"]
+    res = pe.result
+    records = int(round(duration_s * 10.0)) // 5
+    assert res.engine == engine, res.engine
+    assert res.freq_ppm.shape == (2, records, topo.num_nodes)
+    assert np.isfinite(res.freq_ppm).all() and np.isfinite(res.beta).all()
+    chunk_s = sum(ev.dur for ev in tr.by_kind("chunk"))
+    row = dict(phase="serve_pace", case=case, engine=engine,
+               workers=topo.num_nodes, steps=int(round(duration_s * 10.0)),
+               record_every=5, kp=5e-3, segments=len(res.compiled.segments),
+               engine_calls=res.num_launches, fused_launches=launches,
+               segment_sum_runs=runs, wall_s=wall, engine_calls_s=chunk_s,
+               rest_of_wall_s=wall - chunk_s,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if engine == "fused":
+        assert launches == res.num_launches == len(calls) >= 1, row
+        assert runs == 0, row
+        held = hold_engine_calls(calls, 10**9, exact=True)["bittide_fused"]
+
+        def replay():
+            for a, _ in calls:
+                args, kw = dense_call_args(a)
+                bittide_fused(*args, **kw, lists=a["lists"])
+        ms = cuda_ms(replay, 3)
+        row.update(kernel_vs_plain=held, kernel_ms_all_calls=ms,
+                   kernel_ms_per_call=ms / len(calls),
+                   kernel_ms_note="CUDA events around one replay of every "
+                                  "engine call's launch, back to back: the "
+                                  "host's launch gaps included")
+    else:
+        assert launches == 0 and runs == res.num_launches, row
+    del calls
+    return pe, row
+
+
+def serve_disciplines(case, engine, pe, reqs, cost, cfg, disc):
+    """Serve ``reqs`` under each discipline of ``pe``: the wall of one
+    serve, a second serve's fingerprint (equal), and a third with the
+    per-tick witness (request conservation at every tick, every request
+    completed, the same fingerprint).  Returns discipline -> row."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.serve import DISCIPLINES, serve
+    rows = {}
+    for d in DISCIPLINES:
+        sched = pe.schedule(d, disc)
+        t0 = time.perf_counter()
+        res = serve(reqs, sched, cost, cfg)
+        wall = time.perf_counter() - t0
+        again = serve(reqs, sched, cost, cfg)
+        ticks = serve(reqs, sched, cost,
+                      dataclasses.replace(cfg, record_ticks=True))
+        tt = ticks.ticks
+        row = dict(phase="serve", case=case, engine=engine, discipline=d,
+                   wall_s=wall, requests=res.num_requests,
+                   completed=res.completed, ticks=res.num_ticks,
+                   p50_s=res.p50_s, p99_s=res.p99_s, p999_s=res.p999_s,
+                   goodput_tps=res.goodput_tps, offered_tps=res.offered_tps,
+                   stall_s=res.stall_s,
+                   slot_occupancy_mean=res.slot_occupancy_mean,
+                   queue_peak=res.queue_peak,
+                   fingerprint_equal=(res.fingerprint() == again.fingerprint()
+                                      == ticks.fingerprint()),
+                   conserved=bool(np.array_equal(
+                       tt.admitted, tt.queued + tt.in_flight + tt.completed)
+                       and tt.admitted[-1] == res.num_requests))
+        emit(row)
+        assert row["fingerprint_equal"] and row["conserved"], row
+        assert res.completed == res.num_requests, row
+        assert res.goodput_tps <= res.offered_tps + 1e-9, row
+        rows[d] = row
+    bt, bar = rows["bittide"], rows["barrier"]
+    assert bt["goodput_tps"] >= bar["goodput_tps"], (bt, bar)
+    assert bt["p99_s"] <= bar["p99_s"] + 1e-9, (bt, bar)
+    return rows
+
+
+def run_serve(dev):
+    """Phase 11: the bittide-paced serving simulator and straggler pacing
+    (see the module docstring)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import ring
+    from repro_torch.core.frame_model import RUN_COUNT
+    from repro_torch.ft import simulate_stragglers
+    from repro_torch.serve import (ArrivalConfig, DisciplineConfig,
+                                   ServeConfig, StepCostModel,
+                                   generate_requests)
+    topo = ring(8)
+    speed = np.random.default_rng(7).uniform(-50_000, 50_000, 8)
+    cost = StepCostModel.from_zoo("smollm-135m", decode_slots=8,
+                                  hw_flops=1e12)
+    disc = DisciplineConfig(queue_depth=16)
+    out = dict(fused_launches=0, held=[], kernel_ms_per_call=[])
+
+    # (a) examples/serve_bittide.py at its full default, on both lanes.
+    reqs = generate_requests(ArrivalConfig(
+        rate_rps=8.0, duration_s=60.0, diurnal_amp=0.4,
+        diurnal_period_s=60.0, burst_rate_mult=3.0, burst_duration_s=3.0,
+        num_bursts=2, prompt_mean=48.0, output_mean=24.0, seed=0))
+    cfg = ServeConfig(8, 64, slo_s=30.0)
+    paced = {}
+    for engine in ("segment-sum", "fused"):
+        pe, row = pace_on_card("example", topo, speed,
+                               serve_example_scenario(60.0), engine, 60.0)
+        rows = serve_disciplines("example", engine, pe, reqs, cost, cfg,
+                                 disc)
+        row["serve_wall_s"] = {d: r["wall_s"] for d, r in rows.items()}
+        row["pace_share_of_wall"] = row["wall_s"] / (
+            row["wall_s"] + sum(row["serve_wall_s"].values()))
+        emit(row)
+        paced[engine] = pe.result
+        if engine == "fused":
+            out["fused_launches"] += row["fused_launches"]
+            out["held"].append(row["kernel_vs_plain"])
+            out["kernel_ms_per_call"].append(row["kernel_ms_per_call"])
+    fu, ss = paced["fused"], paced["segment-sum"]
+    err = float(np.abs(fu.freq_ppm - ss.freq_ppm).max())
+    bar = float32_floor_ppm(5e-3, int(topo.in_degree.max()), float(max(
+        np.abs(fu.psi).max(), np.abs(ss.psi).max())))
+    cross = dict(phase="serve_lanes", case="example",
+                 freq_err_fused_vs_segment_sum_ppm=err,
+                 float32_floor_bar_ppm=bar,
+                 max_abs_freq_ppm=float(np.abs(ss.freq_ppm).max()),
+                 beta_fused=list(fu.beta.shape),
+                 beta_segment_sum=list(ss.beta.shape))
+    emit(cross)
+    assert err <= bar, cross
+
+    # (b) the serving_goodput lane's configuration, on the fused lane.
+    reqs = generate_requests(ArrivalConfig(
+        rate_rps=6.0, duration_s=30.0, diurnal_amp=0.4,
+        diurnal_period_s=30.0, burst_rate_mult=3.0, burst_duration_s=2.0,
+        num_bursts=1, prompt_mean=48.0, output_mean=24.0, seed=0))
+    pe, row = pace_on_card("serving_goodput", topo, speed,
+                           serving_bench_scenario(), "fused", 30.0)
+    rows = serve_disciplines("serving_goodput", "fused", pe, reqs, cost,
+                             ServeConfig(8, 64, slo_s=15.0), disc)
+    row["serve_wall_s"] = {d: r["wall_s"] for d, r in rows.items()}
+    emit(row)
+    out["fused_launches"] += row["fused_launches"]
+    out["held"].append(row["kernel_vs_plain"])
+    out["kernel_ms_per_call"].append(row["kernel_ms_per_call"])
+
+    # (c) simulate_stragglers at tests/test_ft_straggler.py's case.
+    for ki in (5e-5, 0.0):
+        RUN_COUNT["segment-sum"] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = simulate_stragglers(
+            ring(4), np.array([50_000.0, -50_000.0, 0.0, 0.0]),
+            queue_depth=512, steps_per_second=10.0, duration_s=100.0,
+            kp=5e-3, ki=ki)
+        torch.cuda.synchronize()
+        row = dict(phase="stragglers", topology="ring4", ki=ki,
+                   controller="pi" if ki else "proportional",
+                   wall_s=time.perf_counter() - t0,
+                   segment_sum_runs=RUN_COUNT["segment-sum"],
+                   **dataclasses.asdict(rep))
+        emit(row)
+        assert row["segment_sum_runs"] == 2, row
+        assert rep.controlled_queue_peak < rep.uncontrolled_queue_peak / 5
+        assert rep.rate_spread_final < 1e-3 and rep.bounded, row
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2167,14 +2586,17 @@ def main() -> int:
     # facade, the guard's host resync, the quickstart
     perstep = run_perstep(dev, tiled_res, scen)
 
+    # 11. the serving simulator paced on the card, and straggler pacing
+    serving = run_serve(dev)
+
     # The kernels line, the card line, the last line.  Launches: the main
-    # paths' counts (phases 3, 4, 6, 7, 8, 9 and 10; the fused, tiled and
+    # paths' counts (phases 3, 4, 6, 7, 8, 9, 10 and 11; the fused, tiled and
     # sparse wrappers count their calls that launched — one bittide_tiled
     # or bittide_sparse call launches a kernel per period and two or three
     # per measure pass from C — and bittide_perstep counts the kernels its
     # C loop launched).  Errors: the worst over every comparison with the
-    # plain version (phase 2, the main paths' launches, phases 7, 9 and
-    # 10's engine calls).
+    # plain version (phase 2, the main paths' launches, phases 7, 9, 10
+    # and 11's engine calls).
     errs = {k: dict(w) for k, w in worst.items()}
 
     def fold(kernel, freq_ppm, beta_frames):
@@ -2192,6 +2614,8 @@ def main() -> int:
         fold("bittide_sparse", h["freq_ppm"], h["beta_frames"])
     for h in perstep["held"]:
         fold("bittide_step", h["freq_ppm"], h["beta_frames"])
+    for h in serving["held"]:
+        fold("bittide_fused", h["freq_ppm"], h["beta_frames"])
     ps = perstep["a"]
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     no_library = ("no single PyTorch call runs the period loop (a matmul "
@@ -2201,7 +2625,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/bittide_fused.cu",
              replaces="src/repro/kernels/bittide_step.py:271 (_fused_kernel)",
              launches=fc8["launches"] + torus["launches"]
-             + scen["fused_launches"],
+             + scen["fused_launches"] + serving["fused_launches"],
              max_abs_err=errs["bittide_fused"]["freq_ppm"],
              max_err_ppm=errs["bittide_fused"]["freq_ppm"],
              max_beta_err_frames=errs["bittide_fused"]["beta_frames"],
@@ -2222,6 +2646,12 @@ def main() -> int:
              phase4_ms=torus["kernel_ms"], phase4_bound_ms=torus["bound_ms"],
              phase4_latency_bound_ms=torus["latency_bound_ms"],
              launch_plans=[fc8["launch_plan"], torus["launch_plan"]],
+             phase11_launches=serving["fused_launches"],
+             phase11_ms_per_call=serving["kernel_ms_per_call"],
+             phase11_note="pace_workers(engine='fused'): ring(8), B=2; "
+                          "CUDA-event ms per engine call (one call per "
+                          "event segment's chunk), (a) the example, (b) "
+                          "the serving_goodput lane",
              library_ms=None, library_note=no_library),
         dict(name="bittide_tiled", route="cuda",
              source="src/repro_torch/kernels/csrc/bittide_tiled.cu",

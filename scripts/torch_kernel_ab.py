@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Hold the fused and sparse kernels against another tree's, bit for bit.
+"""Hold the fused, tiled, sparse and per-step kernels against another
+tree's, bit for bit.
 
     git archive <commit> src/repro_torch | tar -x -C build/ab_old
     python3 scripts/torch_kernel_ab.py build/ab_old
@@ -8,11 +9,13 @@ Runs on a machine with an NVIDIA card.  The inputs of ``chip_smoke.py``'s
 main-path launches are made once with this tree and saved under
 ``build/ab/``: phase 3 (FC8 × 4096 draws, 10,000 periods, β +
 watermarks, the fused kernel), phase 4 (torus3d(6) × 256, 2,000 periods,
-watermarks, fused), phase 8 (torus3d(100) × 8, 2,000 periods,
-watermarks, the sparse kernel's grouped pass), phase 8b (torus3d(22) × 8
-on the sparse kernel, direct) and a per-draw-table call (torus3d(8) ×
-1,024 draws, one dropped link per draw, as in phase 9's LinkDrop
-campaign: direct).  Each tree then runs every call in a process of its
+watermarks, fused), phase 6 (torus3d(22) × 8, 2,000 periods recorded
+every 100, watermarks, the tiled kernel), phase 8 (torus3d(100) × 8,
+2,000 periods, watermarks, the sparse kernel's grouped pass), phase 8b
+(torus3d(22) × 8 on the sparse kernel, direct), a per-draw-table call
+(torus3d(8) × 1,024 draws, one dropped link per draw, as in phase 9's
+LinkDrop campaign: direct) and phase 10(a) (draw 0 of phase 6 on the
+per-step kernel).  Each tree then runs every call in a process of its
 own, importing only its own ``src/repro_torch`` and building its kernels
 from its own ``csrc/`` into its own ``build/kernels/``, in turns: other,
 this, this, other.  Every output (ν records, ψ, ν, β, the four
@@ -51,16 +54,18 @@ def prepare() -> list:
     cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x
     calls = {}
 
-    def dense(name, topo, b, dt, steps, rec, beta):
+    def dense(name, topo, b, dt, steps, rec, beta, kernel="bittide_fused"):
         links = make_links(topo, cable_m=2.0)
         ppm = np.random.default_rng(0).uniform(-8, 8, (b, topo.num_nodes))
         args, mask = cs.fused_inputs(topo, links, ppm, 2e-8, dev)
-        calls[name] = ("bittide_fused", args + (float(125e6 * dt),),
+        calls[name] = (kernel, args + (float(125e6 * dt),),
                        dict(num_records=steps // rec, record_every=rec,
                             ctrl_mask=mask, record_beta=beta,
                             record_watermarks=True))
     dense("phase3_fc8", fully_connected(8), 4096, 5e-5, 10_000, 20, True)
     dense("phase4_torus3d_6", torus3d(6), 256, 1e-3, 2_000, 20, False)
+    dense("phase6_torus3d_22", torus3d(22), 8, 5e-3, 2_000, 100, False,
+          kernel="bittide_tiled")
 
     def sparse(name, k, b):
         topo = torus3d(k)
@@ -94,6 +99,19 @@ def prepare() -> list:
     calls["per_draw_torus3d_8"] = ("bittide_sparse", args,
                                    dict(num_records=20, record_every=12))
 
+    # Phase 10(a): draw 0 of phase 6 on the per-step kernel, as the
+    # per-step lane calls it.
+    topo = torus3d(22)
+    ppm = np.random.default_rng(0).uniform(-8, 8, (8, topo.num_nodes))[:1]
+    with cs.recorded_engine_calls(ops, "_perstep_engine") as rec:
+        simulate_ensemble_dense(
+            topo, make_links(topo, cable_m=2.0), ppm, 2_000, 2e-8, dt=5e-3,
+            record_every=100, options=EngineOptions(engine="per-step"),
+            telemetry=Telemetry(watermarks=True))
+    args, kw = cs.perstep_call_args(rec[0][0])
+    calls["phase10a_torus3d_22"] = ("bittide_step", args, kw)
+    del rec
+
     for name, (kernel, args, kw) in calls.items():
         torch.save(dict(kernel=kernel, args=[cpu(a) for a in args],
                         kw={k: cpu(v) for k, v in kw.items()}),
@@ -108,7 +126,9 @@ def run(tree: Path, names, tag: str) -> None:
     import torch
     from repro_torch.kernels import bittide_sparse, bittide_step
     kernels = {"bittide_fused": bittide_step.bittide_fused,
-               "bittide_sparse": bittide_sparse.bittide_sparse}
+               "bittide_tiled": bittide_step.bittide_tiled,
+               "bittide_sparse": bittide_sparse.bittide_sparse,
+               "bittide_step": bittide_step.bittide_perstep}
     gpu = lambda x: x.cuda() if isinstance(x, torch.Tensor) else x
     times = {}
     for name in names:

@@ -7,10 +7,14 @@ segment-sum core and the paper facade (``repro_torch.core``:
 the fused, tiled, sparse and per-step lanes on hand-written Hopper
 kernels (``repro_torch.kernels``), the scenario
 layer (``repro_torch.scenarios``), the telemetry types
-(``repro_torch.telemetry``) and ``repro_torch.convert``, which carries the
-reference's objects across.  Entry points run on the CUDA card unless
-called with ``device="cpu"``.
+(``repro_torch.telemetry``), the bittide-paced serving simulator
+(``repro_torch.serve``, on the copied ``configs`` and the analytic
+``models.ModelZoo``), straggler pacing (``repro_torch.ft``) and
+``repro_torch.convert``, which carries the reference's objects across.
+Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
-from . import convert, core, kernels, scenarios, telemetry
+from . import (configs, convert, core, ft, kernels, models, scenarios, serve,
+               telemetry)
 
-__all__ = ["convert", "core", "kernels", "scenarios", "telemetry"]
+__all__ = ["configs", "convert", "core", "ft", "kernels", "models",
+           "scenarios", "serve", "telemetry"]

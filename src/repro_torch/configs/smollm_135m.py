@@ -1,0 +1,10 @@
+"""smollm-135m [hf:HuggingFaceTB/SmolLM-135M; hf] — llama-arch small."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="smollm-135m", family="dense",
+    num_layers=30, d_model=576, num_heads=9, num_kv_heads=3,
+    d_ff=1536, vocab_size=49152, head_dim=64,
+    rope_theta=1e4, tie_embeddings=True, param_dtype="float32",
+    source="hf:HuggingFaceTB/SmolLM-135M; hf",
+)

@@ -88,6 +88,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "bittide_fold.cuh"
+
 namespace {
 
 constexpr int kMaxClasses = 8;
@@ -185,21 +187,6 @@ __device__ __forceinline__ float aggregate(
     acc = __fadd_rn(acc, part);
   }
   return acc;
-}
-
-// The watermarks' running max and min as torch.maximum / torch.minimum
-// fold them: NaN when either operand is NaN (fmaxf and fminf drop it).
-// PTX's .NaN modifier (sm_80 on) does that in fmaxf's one instruction.
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float d;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
-}
-
-__device__ __forceinline__ float min_nan(float a, float b) {
-  float d;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
-  return d;
 }
 
 // A row's terms in registers: term m reads x at xo[m] = c*N + j (class

@@ -74,6 +74,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "bittide_fold.cuh"
+
 namespace {
 
 constexpr int kMeanChunk = 1024;   // nodes per first-level chunk of the mean
@@ -156,9 +158,9 @@ __device__ __forceinline__ void measure_out(const Params& p, int b,
     } else {
       const float bmax = p.wm_bmax[row];
       if (babs > bmax) p.wm_idx[row] = p.t;
-      p.wm_bmax[row] = fmaxf(bmax, babs);
-      p.wm_lo[row] = fminf(p.wm_lo[row], nu);
-      p.wm_hi[row] = fmaxf(p.wm_hi[row], nu);
+      p.wm_bmax[row] = max_nan(bmax, babs);
+      p.wm_lo[row] = min_nan(p.wm_lo[row], nu);
+      p.wm_hi[row] = max_nan(p.wm_hi[row], nu);
     }
   }
   if (p.trip != nullptr) {

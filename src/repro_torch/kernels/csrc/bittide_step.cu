@@ -66,6 +66,7 @@
 // reference's lax.cond(live, ..., frozen)).  The host issues no launch
 // past the stop cap.
 
+#include "bittide_fold.cuh"
 #include "bittide_stream.cuh"
 
 namespace {
@@ -183,9 +184,9 @@ bittide_step_pass(const __grid_constant__ Params p) {
     } else {
       const float bmax = p.wm_bmax[i];
       if (babs > bmax) p.wm_idx[i] = p.t;
-      p.wm_bmax[i] = fmaxf(bmax, babs);
-      p.wm_lo[i] = fminf(p.wm_lo[i], nu);
-      p.wm_hi[i] = fmaxf(p.wm_hi[i], nu);
+      p.wm_bmax[i] = max_nan(bmax, babs);
+      p.wm_lo[i] = min_nan(p.wm_lo[i], nu);
+      p.wm_hi[i] = max_nan(p.wm_hi[i], nu);
     }
   }
   if (p.trip != nullptr) {

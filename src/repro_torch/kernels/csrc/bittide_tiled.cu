@@ -62,6 +62,7 @@
 // order, so the batch-wide freeze is exact with no host sync.  The host
 // issues no launch past guard_stop.
 
+#include "bittide_fold.cuh"
 #include "bittide_stream.cuh"
 
 namespace {
@@ -205,9 +206,9 @@ bittide_tiled_pass(const __grid_constant__ Params p) {
       } else {
         const float bmax = p.wm_bmax[row];
         if (babs > bmax) p.wm_idx[row] = p.t;
-        p.wm_bmax[row] = fmaxf(bmax, babs);
-        p.wm_lo[row] = fminf(p.wm_lo[row], nu);
-        p.wm_hi[row] = fmaxf(p.wm_hi[row], nu);
+        p.wm_bmax[row] = max_nan(bmax, babs);
+        p.wm_lo[row] = min_nan(p.wm_lo[row], nu);
+        p.wm_hi[row] = max_nan(p.wm_hi[row], nu);
       }
     }
     if (p.trip != nullptr) {

@@ -44,7 +44,13 @@ torus3d(7) with holdover, torus3d(6) with one class and with three) in
 every variant and with the guard, at 0.0
 error; its bits do not depend on how the periods are cut into calls nor
 on the kernel (the fused kernel at B = 1 gives the same bits); after a
-trip or the stop cap its records are frozen.
+trip or the stop cap its records are frozen.  The tiled, sparse (direct
+and grouped) and per-step kernels on a diverged draw
+(``STREAM_NONFINITE_CASES``: ψ seeded inf, or a gain that overflows
+after a record) give the plain version's inf / NaN pattern bit for bit,
+all four watermark arrays included.  The serving simulator's pacing
+ensemble (``pace_workers(engine="fused")``) holds every engine call at
+0.0 error to the plain version.
 """
 import importlib.util
 from pathlib import Path
@@ -191,6 +197,22 @@ def test_fused_nonfinite_state_matches_plain_version(cuda, case):
     assert all(r["nonfinite_values"] > 0 for r in rows)
 
 
+@pytest.mark.parametrize("seed", ["inf", "diverging"])
+@pytest.mark.parametrize("kernel,case", chip_smoke.STREAM_NONFINITE_CASES,
+                         ids=list(chip_smoke.STREAM_NONFINITE_IDS))
+def test_stream_kernel_nonfinite_state_matches_plain_version(cuda, kernel,
+                                                             case, seed):
+    """The tiled, sparse (direct and grouped) and per-step kernels on a
+    diverged draw — ψ seeded inf, or a gain that overflows after a record
+    or more: ν, β, ψ, ν', all four watermark arrays and the guard's trips
+    equal the plain version's bit for bit, inf and NaN at the same
+    places; the other draws stay finite.  The diverging rows' records
+    tell a NaN-dropping fold (fmaxf / fminf) from the plain version's."""
+    rows = chip_smoke.stream_nonfinite_rows(kernel, case, seed, cuda)
+    assert len(rows) == 5
+    assert all(r["nonfinite_values"] > 0 for r in rows[:4])
+
+
 def test_main_path_runs_on_the_card(cuda):
     topo = tc.fully_connected(8)
     ppm = np.random.default_rng(0).uniform(-8, 8, (32, 8))
@@ -200,6 +222,37 @@ def test_main_path_runs_on_the_card(cuda):
                                      telemetry=Telemetry(beta=True))
     assert bittide_fused.launches == before + 1
     assert res.engine == "fused" and np.isfinite(res[0]).all()
+
+
+def test_pace_workers_fused_on_the_card(cuda):
+    """The serving simulator's pacing ensemble on the card:
+    ``pace_workers(engine="fused")`` (ring(8), B = 2, the serving_goodput
+    lane's events) launches the fused kernel once per engine call, and
+    every call equals the plain version on its own inputs at 0.0 error;
+    "auto" picks the fused lane and gives the same bits; the same pace on
+    the CPU (the plain version) gives the same records."""
+    from repro_torch.serve import pace_workers
+    speed = np.random.default_rng(7).uniform(-50_000, 50_000, 8)
+    kw = dict(kp=5e-3, duration_s=30.0, record_every=5)
+    before = bittide_fused.launches
+    with chip_smoke.recorded_engine_calls() as calls:
+        pe = pace_workers(tc.ring(8), speed,
+                          chip_smoke.serving_bench_scenario(),
+                          engine="fused", **kw)
+    launched = bittide_fused.launches - before
+    assert launched == pe.result.num_launches == len(calls) >= 1
+    held = chip_smoke.hold_engine_calls(calls, 10**9, exact=True)
+    assert held["bittide_fused"]["calls"] == len(calls)
+    auto = pace_workers(tc.ring(8), speed,
+                        chip_smoke.serving_bench_scenario(), engine="auto",
+                        **kw)
+    assert auto.result.engine == "fused"
+    np.testing.assert_array_equal(auto.result.freq_ppm, pe.result.freq_ppm)
+    cpu = pace_workers(tc.ring(8), speed,
+                       chip_smoke.serving_bench_scenario(), engine="fused",
+                       device="cpu", **kw)
+    np.testing.assert_array_equal(cpu.result.freq_ppm, pe.result.freq_ppm)
+    np.testing.assert_array_equal(cpu.result.beta, pe.result.beta)
 
 
 def _tiled_variants(args, kw, b):

@@ -18,6 +18,7 @@ torch = pytest.importorskip("torch")
 import repro_torch.core as tc  # noqa: E402
 import repro_torch.kernels as tk  # noqa: E402
 import repro_torch.scenarios as ts  # noqa: E402
+from repro_torch import ft, serve  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
@@ -40,6 +41,11 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.core import envelopes, reframing, ddc, latency, "
         "schedule, frame_level, network\n"
         "from repro_torch.scenarios import events, compiler, runner, chaos\n"
+        "import repro_torch.serve, repro_torch.ft, repro_torch.configs, "
+        "repro_torch.models\n"
+        "from repro_torch.serve import arrival, costmodel, pacing, engine\n"
+        "from repro_torch.ft import straggler\n"
+        "from repro_torch.models import model_zoo\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -142,6 +148,11 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
         lambda: tc.BittideNetwork(topo, links, np.zeros(4)).run_scenario(
             ts.Scenario(events=()), cfg=tc.SimConfig(steps=10,
                                                       record_every=10)),
+        lambda: serve.pace_workers(topo, np.zeros(4), ts.Scenario(events=()),
+                                   duration_s=1.0),
+        lambda: serve.pace_workers(topo, np.zeros(4), ts.Scenario(events=()),
+                                   duration_s=1.0, engine="fused"),
+        lambda: ft.simulate_stragglers(topo, np.zeros(4), duration_s=1.0),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
