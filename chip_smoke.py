@@ -176,6 +176,38 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               each pace (its engine calls by the flight recorder, and the
               rest) and each discipline's serve.
 
+12. models  — model serving through ``repro_torch.models.ModelZoo`` (no
+              kernel of the port: the stack reaches no ``pallas_call`` in
+              the reference), under ``torch.inference_mode()`` with the
+              default matmul flags (printed).  (a) smollm-135m at full
+              width and depth (30 layers, d 576, 9 / 3 heads, vocab
+              49,152) on random weights from a seeded generator: 8
+              requests of 2,048-token prompts (``attn_chunk`` 1,024: the
+              chunked path), 32 greedy tokens by examples/serve_decode.py's
+              widen-and-append loop; the prefill and decode times (CUDA
+              events), tokens/s, peak memory, parameter count and bytes,
+              and a decode step's bytes bounds (the arithmetic as written,
+              with its per-call bf16 casts, and the function's own: the
+              f32 parameters and the caches read once); ``torch.profiler`` over one
+              prefill and four decode steps: the device's busy time, idle
+              share and operations launched.  (b) prefill(1,023) +
+              decode(1) against prefill(1,024)'s last logits: at rtol /
+              atol 2e-2 with the depth cut to 2 layers (the same
+              weights), and at full depth the greedy token wherever the
+              forward's top-1 / top-2 margin exceeds 4e-2 (its error
+              printed); for smollm at full depth, on one sequence, the
+              card's parting within 1.5 x the port's on the CPU with the
+              same weights (tests/test_torch_models_serving.py holds the
+              CPU's within 1.5 x the reference's at full depth); the f8
+              K/V cache within 2 % of the bf16 cache.  (c) mamba2-370m at
+              full width and depth (48 layers,
+              d 1,024, state 128, chunk 256): 4 requests of 1,024 tokens,
+              16 greedy tokens, as (a), and (b)'s check.  (d) every
+              architecture at ``.reduced()``: prefill and 4 decode steps
+              from the same weights on the card and the CPU, logits at
+              (b)'s bar, the greedy tokens equal wherever the CPU's top-1
+              / top-2 margin exceeds 4e-2.
+
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
 run with a non-zero exit; without a CUDA card it exits 2 and prints no
@@ -2488,6 +2520,373 @@ def run_serve(dev):
     return out
 
 
+# Phase 12's bars: the reference's decode-vs-forward bar (rtol and atol;
+# tests/test_models_modules.py, activations in bf16), the greedy margin
+# past which the card's token must be the CPU's, and the f8 cache's bar
+# (tests/test_perf_knobs.py: within 2 % of max |logit| of the bf16 cache).
+LOGIT_TOL = 2e-2
+GREEDY_MARGIN = 4e-2
+F8_REL = 0.02
+# The depth at which (b) holds decode to the forward's logits at the bar:
+# the reference's own property is tested on 2-3 layers, and at full depth
+# its own bf16 paths part by more (tests/test_torch_models_serving.py pins
+# that on the reference: smollm-135m at its full 30 layers, mamba2-370m
+# at 8 of its 48).  At full depth the greedy tokens must agree, and
+# smollm's card parts by at most WITNESS_RATIO x the port on the CPU.
+CHECK_LAYERS = 2
+WITNESS_RATIO = 1.5
+
+
+def matmul_flags() -> dict:
+    import torch
+    m = torch.backends.cuda.matmul
+    return dict(allow_tf32=m.allow_tf32,
+                allow_bf16_reduced_precision_reduction=(
+                    m.allow_bf16_reduced_precision_reduction),
+                allow_fp16_reduced_precision_reduction=(
+                    m.allow_fp16_reduced_precision_reduction),
+                cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+                float32_matmul_precision=torch.get_float32_matmul_precision())
+
+
+def model_batch(cfg, b, s, seed, dev):
+    """A serving batch from ``default_rng(seed)``: tokens, plus the patch
+    embeddings (vlm) or source embeddings (encdec) in bf16."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                    dtype=torch.int32, device=dev)}
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = torch.tensor(rng.normal(
+            0, 1, (b, cfg.num_patch_tokens, cfg.d_model)),
+            dtype=torch.float32, device=dev).to(torch.bfloat16)
+    if cfg.family == "encdec":
+        batch["src_embeds"] = torch.tensor(rng.normal(
+            0, 1, (b, s, cfg.d_model)), dtype=torch.float32,
+            device=dev).to(torch.bfloat16)
+    return batch
+
+
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def greedy(logits):
+    import torch
+    return logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+
+
+def serve_greedy(zoo, params, batch, new_tokens):
+    """examples/serve_decode.py's loop: prefill, then widen the caches by
+    one slot and decode the greedy token, ``new_tokens - 1`` times.
+    Returns the (B, new_tokens) int32 tokens, whether every logit was
+    finite, the CUDA-event ms of the prefill and of the decode loop, and
+    the cache bytes each decode step read."""
+    import torch
+    from repro_torch.models import widen_caches
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    logits, caches = zoo.prefill(params, batch)
+    ev[1].record()
+    finite = torch.isfinite(logits).all()
+    tok = greedy(logits)
+    out, cache_bytes = [tok], []
+    for _ in range(new_tokens - 1):
+        caches = widen_caches(caches)
+        cache_bytes.append(tree_bytes(caches))
+        logits, caches = zoo.decode(params, caches, {"tokens": tok})
+        finite &= torch.isfinite(logits).all()
+        tok = greedy(logits)
+        out.append(tok)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return dict(tokens=torch.cat(out, dim=1), finite=bool(finite),
+                prefill_ms=ev[0].elapsed_time(ev[1]),
+                decode_ms=ev[1].elapsed_time(ev[2]),
+                cache_bytes=cache_bytes)
+
+
+def device_busy(fn) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA): its wall
+    (ending in a synchronize), the device's busy time (the kernels' and
+    copies' own time: one stream, so they do not overlap), the share of
+    the wall the device was idle, the device operations launched, and
+    the five device operations that took longest (name, ms, count).
+    ``busy_ms`` is None where the trace shows no device time."""
+    import time
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    return dict(wall_ms=wall, busy_ms=busy or None,
+                idle_share=(1.0 - busy / wall) if busy else None,
+                device_ops=sum(e.count for e in rows),
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in rows[:5]])
+
+
+def decode_vs_forward(zoo, params, tokens) -> dict:
+    """prefill(S-1) + decode(1) against prefill(S)'s last logits: the
+    largest error, the largest excess over the bar (≤ 0 passes), the share
+    of logits over it, and the sequences whose forward top-1 / top-2
+    margin exceeds ``GREEDY_MARGIN`` with the greedy token decode agrees
+    on."""
+    from repro_torch.models import widen_caches
+    full, _ = zoo.prefill(params, {"tokens": tokens})
+    _, caches = zoo.prefill(params, {"tokens": tokens[:, :-1]})
+    dec, _ = zoo.decode(params, widen_caches(caches),
+                        {"tokens": tokens[:, -1:]})
+    err = (dec - full).abs()
+    excess = err - (LOGIT_TOL + LOGIT_TOL * full.abs())
+    top2 = full[:, -1].topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > GREEDY_MARGIN
+    same = (greedy(dec) == greedy(full))[:, 0]
+    return dict(err=float(err.max()), excess=float(excess.max()),
+                over=float((excess > 0).float().mean()),
+                sure=int(sure.sum()), sure_equal=int(same[sure].sum()))
+
+
+def first_layers(params, n):
+    """The parameters of a stacked-layer model cut to its first n layers."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return dict(params, layers=cut(params["layers"]))
+
+
+def serve_full_width(name, dev, smi, b, s, new_tokens, check_s,
+                     cpu_witness=False):
+    """Phase 12 (a) / (c): one architecture at full width and depth on
+    random weights from a seeded generator on the card.  With
+    ``cpu_witness``, (b) at full depth also holds the card's parting on
+    the first sequence within ``WITNESS_RATIO`` x the CPU's on the same
+    weights and tokens."""
+    import dataclasses
+    import time
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelZoo, materialize, widen_caches
+    cfg = get_config(name)
+    zoo = ModelZoo(cfg)
+    t0 = time.perf_counter()
+    params = materialize(zoo.param_defs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = tree_bytes(params)
+    n_params = param_bytes // 4           # float32
+    batch = model_batch(cfg, b, s, 0, dev)
+    with torch.inference_mode():
+        serve_greedy(zoo, params, batch, 2)             # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = serve_greedy(zoo, params, batch, new_tokens)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        # the device's busy and idle time under the profiler: one prefill,
+        # then four decode steps
+        prof_prefill = device_busy(lambda: zoo.prefill(params, batch))
+        _, caches = zoo.prefill(params, batch)
+        tok = run["tokens"][:, :1]
+
+        def four_steps():
+            nonlocal caches
+            for _ in range(4):
+                logits, caches = zoo.decode(params, widen_caches(caches),
+                                            {"tokens": tok})
+        prof_decode = device_busy(four_steps)
+        del caches
+        # (b): at full width and depth, and with the depth cut to the
+        # reference's tested depth (its reduced configs: 2-3 layers), on
+        # the same weights
+        check = decode_vs_forward(zoo, params, batch["tokens"][:, :check_s])
+        cut = ModelZoo(dataclasses.replace(cfg, num_layers=CHECK_LAYERS))
+        check_cut = decode_vs_forward(cut, first_layers(params, CHECK_LAYERS),
+                                      batch["tokens"][:, :check_s])
+        witness = None
+        if cpu_witness:
+            one = batch["tokens"][:1, :check_s]
+            on_card = decode_vs_forward(zoo, params, one)
+            on_cpu = decode_vs_forward(zoo, tree_to(params, "cpu"),
+                                       one.cpu())
+            witness = dict(sequences=1, tokens=check_s, card=on_card,
+                           cpu=on_cpu, ratio=on_card["err"] / on_cpu["err"],
+                           bar=WITNESS_RATIO)
+    toks = run["tokens"]
+    steps = new_tokens - 1
+    # Two bytes bounds for a decode step.  The arithmetic as written:
+    # every float32 parameter it reads in full (all but an untied
+    # embedding table, of which it gathers B rows) read as stored, its
+    # bf16 copy written by the call's cast and read back by the matmul
+    # (4 + 2 + 2 bytes per parameter), and the caches read (their mean
+    # over the steps).  The function's own: the same parameters and
+    # caches, each read once (4 bytes per parameter).
+    read_params = n_params - (0 if cfg.tie_embeddings
+                              else params["embed"].numel())
+    cache_mean = sum(run["cache_bytes"]) / steps
+    bound_bytes = 8 * read_params + cache_mean
+    own_bytes = 4 * read_params + cache_mean
+    row = dict(
+        phase="models", part=name, nvidia_smi=smi, batch=b, prompt=s,
+        new_tokens=new_tokens, layers=cfg.num_layers, d_model=cfg.d_model,
+        params=n_params, param_bytes=param_bytes, init_s=init_s,
+        prefill_ms=run["prefill_ms"],
+        prefill_tokens_per_s=b * s / run["prefill_ms"] * 1e3,
+        decode_ms_per_step=run["decode_ms"] / steps,
+        decode_tokens_per_s=b * steps / run["decode_ms"] * 1e3,
+        serve_wall_s=wall, peak_memory_bytes=peak,
+        decode_cache_bytes_mean=cache_mean,
+        decode_bound_bytes=bound_bytes,
+        decode_bound_ms=bound_bytes / PEAK_BYTES_PER_S * 1e3,
+        decode_params_read=read_params,
+        decode_bound_note=("per step, the arithmetic as written: the f32 "
+                           "parameters read in full (an untied embedding "
+                           "table is gathered, not read) + their bf16 cast "
+                           "written and read + the caches read, over "
+                           "3.35 TB/s"),
+        decode_own_bound_bytes=own_bytes,
+        decode_own_bound_ms=own_bytes / PEAK_BYTES_PER_S * 1e3,
+        decode_own_bound_note=("per step, the function's own: the same f32 "
+                               "parameters and the caches, each read once, "
+                               "over 3.35 TB/s"),
+        tokens_shape=list(toks.shape), tokens_dtype=str(toks.dtype),
+        finite=run["finite"], decode_vs_forward_s=check_s,
+        profile_prefill=prof_prefill,
+        profile_4_decode_steps=prof_decode,
+        decode_vs_forward=check,
+        decode_vs_forward_cut=dict(check_cut, layers=CHECK_LAYERS),
+        decode_vs_forward_cpu_witness=witness)
+    row["decode_bound_share"] = row["decode_bound_ms"] / row[
+        "decode_ms_per_step"]
+    row["decode_own_bound_share"] = row["decode_own_bound_ms"] / row[
+        "decode_ms_per_step"]
+    emit(row)
+    assert row["finite"], name
+    assert tuple(toks.shape) == (b, new_tokens) and toks.dtype == torch.int32
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+    assert check["sure_equal"] == check["sure"], (name, check)
+    assert check_cut["excess"] <= 0.0, (name, "decode != forward", check_cut)
+    assert check_cut["sure_equal"] == check_cut["sure"], (name, check_cut)
+    if witness is not None:
+        assert witness["ratio"] <= WITNESS_RATIO, (name, witness)
+    return row, zoo, params, batch
+
+
+def f8_cache_check(zoo, params, tokens) -> float:
+    """Decode with the K/V cache in float8_e4m3fn against the bf16 cache:
+    the largest difference over max |logit|."""
+    from repro_torch.models import widen_caches
+    from repro_torch.models.transformer import to_kv_dtype
+    import torch
+    _, caches = zoo.prefill(params, {"tokens": tokens[:, :-1]})
+    kv = widen_caches(caches)["kv"]
+    dec = {"tokens": tokens[:, -1:]}
+    base, _ = zoo.decode(params, {"kv": kv}, dec)
+    got, new = zoo.decode(params, {"kv": to_kv_dtype(kv, torch.float8_e4m3fn)},
+                          dec)
+    assert new["kv"].dtype == torch.float8_e4m3fn
+    return float((got - base).abs().max() / base.abs().max())
+
+
+def card_vs_cpu(name, dev, b=2, s=64, steps=4) -> dict:
+    """Phase 12 (d): one architecture at ``.reduced()``, the same weights
+    (drawn on the CPU) on the card and on the CPU: prefill and ``steps``
+    decode steps fed the CPU's greedy tokens.  Logits within the bar; the
+    card's greedy token equals the CPU's wherever the CPU's top-1 / top-2
+    margin exceeds ``GREEDY_MARGIN``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelZoo, materialize, widen_caches
+    cfg = get_config(name).reduced()
+    zoo = ModelZoo(cfg)
+    p_cpu = materialize(zoo.param_defs(), torch.Generator().manual_seed(0),
+                        torch.float32, device="cpu")
+    p_dev = tree_to(p_cpu, dev)
+    b_cpu = model_batch(cfg, b, s, 1, "cpu")
+    b_dev = tree_to(b_cpu, dev)
+    worst = dict(name=name, excess=-1.0, err=0.0, compared=0, sure=0,
+                 tokens_equal=0)
+
+    def hold(lc, ld):
+        ld = ld.cpu()
+        err = (ld - lc).abs()
+        worst["excess"] = max(worst["excess"], float(
+            (err - (LOGIT_TOL + LOGIT_TOL * lc.abs())).max()))
+        worst["err"] = max(worst["err"], float(err.max()))
+        top2 = lc[:, -1].topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > GREEDY_MARGIN
+        eq = greedy(lc) == greedy(ld)
+        worst["compared"] += b
+        worst["sure"] += int(sure.sum())
+        worst["tokens_equal"] += int(eq[sure].sum())
+
+    with torch.inference_mode():
+        lc, cc = zoo.prefill(p_cpu, b_cpu)
+        ld, cd = zoo.prefill(p_dev, b_dev)
+        hold(lc, ld)
+        for _ in range(steps):
+            tok = greedy(lc)
+            lc, cc = zoo.decode(p_cpu, widen_caches(cc), {"tokens": tok})
+            ld, cd = zoo.decode(p_dev, widen_caches(cd),
+                                {"tokens": tok.to(dev)})
+            hold(lc, ld)
+    return worst
+
+
+def run_models(dev, smi):
+    """Phase 12: model serving on the card (see the module docstring)."""
+    import torch
+    from repro_torch.configs import ARCH_NAMES
+    emit(dict(phase="models", part="matmul_flags", nvidia_smi=smi,
+              **matmul_flags()))
+    out = {}
+    # (a) + (b): smollm-135m at full width and depth
+    row, zoo, params, batch = serve_full_width(
+        "smollm-135m", dev, smi, b=8, s=2048, new_tokens=32, check_s=1024,
+        cpu_witness=True)
+    with torch.inference_mode():
+        row["f8_cache_rel"] = f8_cache_check(zoo, params,
+                                             batch["tokens"][:, :1024])
+    emit(dict(phase="models", part="smollm-135m f8 cache", nvidia_smi=smi,
+              f8_cache_rel=row["f8_cache_rel"], bar=F8_REL))
+    assert row["f8_cache_rel"] < F8_REL
+    out["smollm"] = row
+    del zoo, params, batch
+    # (c): mamba2-370m at full width and depth
+    out["mamba2"], *_ = serve_full_width(
+        "mamba2-370m", dev, smi, b=4, s=1024, new_tokens=16, check_s=1024)
+    # (d): every architecture, reduced, the card against the CPU
+    rows = [card_vs_cpu(name, dev) for name in ARCH_NAMES]
+    emit(dict(phase="models", part="card_vs_cpu", nvidia_smi=smi,
+              bar=dict(rtol=LOGIT_TOL, atol=LOGIT_TOL,
+                       greedy_margin=GREEDY_MARGIN), rows=rows))
+    for r in rows:
+        assert r["excess"] <= 0.0, r
+        assert r["tokens_equal"] == r["sure"], r
+    out["card_vs_cpu"] = rows
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2588,6 +2987,10 @@ def main() -> int:
 
     # 11. the serving simulator paced on the card, and straggler pacing
     serving = run_serve(dev)
+
+    # 12. model serving: smollm-135m and mamba2-370m at full width, every
+    # architecture (reduced) on the card against the CPU; no kernel
+    run_models(dev, smi)
 
     # The kernels line, the card line, the last line.  Launches: the main
     # paths' counts (phases 3, 4, 6, 7, 8, 9, 10 and 11; the fused, tiled and

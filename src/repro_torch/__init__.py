@@ -8,9 +8,13 @@ the fused, tiled, sparse and per-step lanes on hand-written Hopper
 kernels (``repro_torch.kernels``), the scenario
 layer (``repro_torch.scenarios``), the telemetry types
 (``repro_torch.telemetry``), the bittide-paced serving simulator
-(``repro_torch.serve``, on the copied ``configs`` and the analytic
-``models.ModelZoo``), straggler pacing (``repro_torch.ft``) and
-``repro_torch.convert``, which carries the reference's objects across.
+(``repro_torch.serve``, on the copied ``configs`` and
+``models.ModelZoo.model_flops``), straggler pacing (``repro_torch.ft``),
+the model stack's serving paths (``repro_torch.models``: every family's
+prefill and decode) and ``repro_torch.convert``, which carries the
+reference's objects (a model's weights and caches too) across.  The
+reference's one-release legacy engine kwargs warn once per process
+(``repro_torch._compat``).
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
 from . import (configs, convert, core, ft, kernels, models, scenarios, serve,

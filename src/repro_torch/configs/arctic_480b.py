@@ -3,7 +3,8 @@ with a dense residual MLP in parallel (arctic's dense+MoE hybrid design).
 
 d_ff_dense is an approximation of arctic's ~10B dense component (the
 public config interleaves a dense FFN alongside the routed experts).
-Optimizer moments are bf16 so 512 x 16 GB HBM fits (see DESIGN.md).
+Optimizer moments are bf16, half the f32 moments' memory, so that the
+largest config's training state fits its mesh.
 """
 from .base import ArchConfig
 

@@ -57,7 +57,7 @@ class ArchConfig:
     rope_theta: float = 1e4
     tie_embeddings: bool = False
     param_dtype: str = "float32"      # big archs use bfloat16
-    opt_moment_dtype: str = "float32" # arctic uses bfloat16 (fits 16 GB HBM)
+    opt_moment_dtype: str = "float32" # arctic uses bfloat16 (halves its moments)
     attn_chunk: int = 1024            # query-chunked attention block size
     loss_chunk: int = 512             # sequence chunk for the xent loss
     unroll_layers: bool = False       # python-loop layers (roofline compiles)

@@ -4,21 +4,26 @@ A network and its state are this system's weights: the topology, the link
 parameters, the controller and simulation configs, and a prior result
 used as ``init=``; a scenario (its events) and a reframing policy carry a
 dynamic run across the same way, and a ``BittideNetwork`` the facade's
-whole network.  Each converter reads the reference
-object by attribute (duck typing, so this module imports nothing of
-``repro``) and returns the port's type with numpy arrays, which both
-packages then consume unchanged::
+whole network.  A model's parameter tree and its decode caches
+(nested dicts of arrays) carry across leaf for leaf.  Each converter reads
+the reference object by attribute or by structure (duck typing, so this
+module imports nothing of ``repro``) and returns the port's type with
+numpy arrays or tensors::
 
     topo_t = convert.topology(repro_topo)
     res_t = simulate(topo_t, convert.links(repro_links), ...)
     run_scenario(topo_t, ..., convert.scenario(repro_scenario), ...)
+    params_t = convert.model_params(
+        jax.tree.map(np.asarray, ref_params), device="cpu")
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.controller import ControllerConfig
 from repro_torch.core.frame_model import LinkParams, SimConfig
 from repro_torch.core.network import BittideNetwork
@@ -27,7 +32,7 @@ from repro_torch.core.topology import Topology
 from repro_torch.scenarios import events as _events
 
 __all__ = ["topology", "links", "controller", "sim_config", "init_state",
-           "event", "scenario", "reframe_policy", "network"]
+           "event", "scenario", "reframe_policy", "network", "model_params"]
 
 
 def topology(obj) -> Topology:
@@ -105,3 +110,35 @@ def network(obj, *, device=None) -> BittideNetwork:
     return BittideNetwork(topo=topology(obj.topo), links=links(obj.links),
                           ppm_u=np.array(obj.ppm_u, np.float64),
                           omega_nom=float(obj.omega_nom), device=device)
+
+
+# numpy has no bf16 / f8: jax hands them over as ml_dtypes arrays, whose
+# bits are read here through an integer view of the same width.
+_BITS = {"bfloat16": (np.uint16, torch.bfloat16),
+         "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
+def _tensor(a, device, dtype) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name in _BITS:
+        view, tdt = _BITS[a.dtype.name]
+        t = torch.from_numpy(np.ascontiguousarray(a).view(view).copy()).view(tdt)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def model_params(tree, device=None, dtype=None):
+    """A reference parameter or decode-cache tree (nested dicts of arrays,
+    e.g. ``jax.tree.map(np.asarray, materialize(...))`` or ``prefill``'s
+    caches) as the port's tree of tensors, leaf for leaf, on ``device``
+    (None means the CUDA card), cast to ``dtype`` when given; bf16 and
+    float8 leaves keep their bits."""
+    dev = resolve_device(device)
+
+    def go(t):
+        if isinstance(t, dict):
+            return {k: go(v) for k, v in t.items()}
+        return _tensor(t, dev, dtype)
+
+    return go(tree)

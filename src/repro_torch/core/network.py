@@ -114,7 +114,9 @@ class BittideNetwork:
         (``engine="per-step"`` runs the per-step kernel);
         ``telemetry=Telemetry(guard=True)`` (or a
         :class:`repro_torch.core.reframing.ReframePolicy`) enables
-        closed-loop buffer re-centering.  Delegates to
+        closed-loop buffer re-centering.  The reference's legacy kwargs
+        (``engine=``, ``auto_reframe=``, ...) pass through ``kw``.
+        Delegates to
         :func:`repro_torch.scenarios.run_scenario` on this network's
         device; returns its ScenarioResult (``.lam`` holds the
         per-segment logical-latency tables whose differences are the

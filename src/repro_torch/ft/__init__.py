@@ -1,7 +1,7 @@
 """Fault tolerance on the port: straggler pacing.
 
 ``ft.elastic`` (health tracking and re-meshing on ``launch.mesh``) comes
-with the ModelZoo slice.
+with the launch slice.
 """
 from .straggler import StragglerReport, simulate_stragglers
 

@@ -1,15 +1,19 @@
 """The typed engine call surface: options in, named outputs out.
 
-Port of ``repro.kernels.api``, same fields in the same order.  Only the
-typed ``options=`` API is ported; the reference's one-release legacy
-kwargs are not.
+Port of ``repro.kernels.api``, same fields in the same order.  The
+reference's one-release legacy kwargs (``engine=``, ``interpret=``,
+``chunk_records=``) are merged into an :class:`EngineOptions` by
+:func:`resolve_options`; ``interpret=`` warns once per process (see
+:mod:`repro_torch._compat`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, NamedTuple, Optional
 
-__all__ = ["EngineOptions", "EngineOutputs"]
+from repro_torch._compat import deprecated_kwarg
+
+__all__ = ["EngineOptions", "EngineOutputs", "resolve_options"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,3 +54,32 @@ class EngineOutputs(NamedTuple):
     beta: Optional[Any] = None
     watermarks: Optional[tuple] = None
     guard_state: Optional[Any] = None
+
+
+def resolve_options(options: Optional[EngineOptions], caller: str, *,
+                    engine=None, interpret=None, chunk_records=None,
+                    default_engine: str = "auto") -> EngineOptions:
+    """Merge legacy kwargs into an :class:`EngineOptions`.
+
+    Legacy values are ``None`` when not passed; a passed value wins over
+    the ``options`` field.  ``interpret=`` (a boolean knob) emits the
+    once-per-process deprecation warning; ``engine=`` / ``chunk_records=``
+    are mapped silently (they name real knobs).  The merged options are
+    returned as they are: a truthy ``interpret`` raises at the entry point
+    that reads it, since the port has no interpreter.
+    """
+    base = options if options is not None else EngineOptions(
+        engine=default_engine)
+    if not isinstance(base, EngineOptions):
+        raise TypeError(
+            f"{caller}: options= must be a repro_torch.kernels."
+            f"EngineOptions, got {type(options).__name__}")
+    updates = {}
+    if engine is not None:
+        updates["engine"] = engine
+    if interpret is not None:
+        deprecated_kwarg("interpret=", "options=EngineOptions(interpret=...)")
+        updates["interpret"] = interpret
+    if chunk_records is not None:
+        updates["chunk_records"] = chunk_records
+    return dataclasses.replace(base, **updates) if updates else base

@@ -65,10 +65,10 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core.frame_model import LinkParams, OMEGA_NOM, broadcast_gain
 from repro_torch.core.topology import Topology
-from repro_torch.telemetry.api import Telemetry
+from repro_torch.telemetry.api import Telemetry, resolve_telemetry
 from repro_torch.telemetry.watermarks import Watermarks
 
-from .api import EngineOptions, EngineOutputs
+from .api import EngineOptions, EngineOutputs, resolve_options
 from .bittide_sparse import bittide_sparse, ellify, max_in_degree
 from .bittide_step import (TILE_J, bittide_fused, bittide_perstep,
                            bittide_tiled, select_engine, sparse_tile)
@@ -505,7 +505,11 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
                             edge_w: Optional[np.ndarray] = None,
                             options: Optional[EngineOptions] = None,
                             telemetry: Optional[Telemetry] = None, *,
-                            device=None) -> DenseResult:
+                            device=None, engine: Optional[str] = None,
+                            interpret: Optional[bool] = None,
+                            record_beta: Optional[bool] = None,
+                            record_watermarks: Optional[bool] = None
+                            ) -> DenseResult:
     """Batched dense synchronization: B draws in one call of a dense kernel.
 
     Args:
@@ -534,20 +538,21 @@ def simulate_ensemble_dense(topo: Topology, links: LinkParams, ppm_u,
         per period, the draws looped on the host).
       telemetry: :class:`Telemetry` — ``beta`` / ``watermarks``.
       device: where to run; None means the CUDA card (raises without one).
+      engine, interpret, record_beta, record_watermarks: the reference's
+        legacy spellings of ``options.engine`` / ``options.interpret`` /
+        ``telemetry.beta`` / ``telemetry.watermarks``; a passed value wins
+        over the typed field.  ``interpret=`` and the two ``record_*``
+        kwargs warn once per process; ``engine=`` maps silently.
 
     Returns:
       DenseResult ``(freq_ppm (B, R, N), psi (B, N))`` with R = steps //
       record_every, ``.nu``, ``.beta`` ((B, R, N) frames or None) and
       ``.watermarks``.
     """
-    opts = EngineOptions() if options is None else options
-    tel = Telemetry() if telemetry is None else telemetry
-    if not isinstance(opts, EngineOptions):
-        raise TypeError("options= must be a repro_torch.kernels."
-                        f"EngineOptions, got {type(opts).__name__}")
-    if not isinstance(tel, Telemetry):
-        raise TypeError("telemetry= must be a repro_torch.telemetry."
-                        f"Telemetry, got {type(tel).__name__}")
+    opts = resolve_options(options, "simulate_ensemble_dense",
+                           engine=engine, interpret=interpret)
+    tel = resolve_telemetry(telemetry, "simulate_ensemble_dense",
+                            beta=record_beta, watermarks=record_watermarks)
     if tel.trace or tel.guard:
         raise ValueError(
             "simulate_ensemble_dense: Telemetry.trace / Telemetry.guard "
@@ -668,13 +673,24 @@ def simulate_fused(topo: Topology, links: LinkParams, ppm_u, steps: int,
                    lat_classes=None, edge_w=None,
                    options: Optional[EngineOptions] = None,
                    telemetry: Optional[Telemetry] = None, *,
-                   device=None) -> DenseResult:
+                   device=None, engine: Optional[str] = None,
+                   interpret: Optional[bool] = None,
+                   record_beta: Optional[bool] = None,
+                   record_watermarks: Optional[bool] = None) -> DenseResult:
     """Single-draw fused run; returns (freq_ppm (R, N), psi (N,)).
 
     ``init`` takes (psi (N,), nu (N,)) or a prior single-draw DenseResult;
     everything else passes through to :func:`simulate_ensemble_dense`
     (``.beta`` is then (R, N), ``.watermarks`` per-node (N,) aggregates).
+    The legacy ``engine=`` / ``interpret=`` / ``record_beta=`` /
+    ``record_watermarks=`` kwargs are resolved here, so that a warning
+    names this entry point.
     """
+    options = resolve_options(options, "simulate_fused", engine=engine,
+                              interpret=interpret)
+    telemetry = resolve_telemetry(telemetry, "simulate_fused",
+                                  beta=record_beta,
+                                  watermarks=record_watermarks)
     if init is not None:
         if isinstance(init, DenseResult):
             init = (init[1], init.nu)

@@ -1,23 +1,93 @@
-"""Model zoo API of the port: the analytic part of ``repro.models.model_zoo``.
+"""Model zoo API of the port: the serving entry points of
+``repro.models.model_zoo``.
 
     zoo = ModelZoo(cfg)
-    flops = zoo.model_flops(shape)   # 6·N·D train, 2·N·D prefill / decode
+    defs   = zoo.param_defs()                   # ParamDef tree
+    params = materialize(defs, generator, torch.float32)   # on the card
+    batch  = zoo.input_defs(shape)              # InputDef tree (+ dtypes)
+    logits, caches = zoo.prefill(params, batch)
+    logits, caches = zoo.decode(params, widen_caches(caches), {"tokens": t})
+    flops  = zoo.model_flops(shape)             # 6·N·D train, 2·N·D serve
 
-``param_defs``, ``input_defs``, ``train_loss``, ``prefill`` and ``decode``
-(the forward paths on the model stack) come with the ModelZoo slice; the
-serving simulator needs only the FLOP accounting.
+The tensors handed to ``prefill`` / ``decode`` carry the device;
+``materialize`` runs on the CUDA card unless called with ``device="cpu"``,
+and raises with no card.  ``prefill`` builds the decode caches.  Call
+the forward paths under ``torch.inference_mode()``.  ``train_loss``
+(``losses.chunked_xent`` and gradients) is not ported yet: it comes with
+the training slice.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import torch
+
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
-__all__ = ["ModelZoo"]
+from .transformer import cache_defs, lm_decode_step, lm_forward, model_defs
+
+__all__ = ["ModelZoo", "InputDef"]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputDef:
+    """Like ParamDef but with an explicit dtype (tokens are int32)."""
+    shape: Tuple[int, ...]
+    spec: Tuple[Any, ...]
+    dtype: Any
 
 
 class ModelZoo:
     def __init__(self, cfg: ArchConfig):
         self.cfg = cfg
 
+    # ------------------------------------------------------------ structure
+    def param_defs(self):
+        return model_defs(self.cfg)
+
+    def cache_defs(self, shape: ShapeSpec):
+        return cache_defs(self.cfg, shape.global_batch, shape.seq_len)
+
+    def input_defs(self, shape: ShapeSpec) -> Dict[str, InputDef]:
+        cfg = self.cfg
+        b = shape.global_batch
+        s = 1 if shape.kind == "decode" else shape.seq_len
+        toks = InputDef((b, s), ("dp", None), torch.int32)
+        out = {"tokens": toks}
+        if shape.kind == "train":
+            out["labels"] = InputDef((b, s), ("dp", None), torch.int32)
+        if cfg.family == "vlm" and shape.kind != "decode":
+            n = min(cfg.num_patch_tokens, shape.seq_len)
+            out["patch_embeds"] = InputDef((b, n, cfg.d_model),
+                                           ("dp", None, None), torch.bfloat16)
+        if cfg.family == "encdec" and shape.kind != "decode":
+            out["src_embeds"] = InputDef((b, shape.seq_len, cfg.d_model),
+                                         ("dp", None, None), torch.bfloat16)
+        return out
+
+    # ------------------------------------------------------------- fwd paths
+    def prefill(self, params, batch):
+        """Full-sequence forward: (last-position logits (B, 1, vocab) f32,
+        caches)."""
+        hidden, caches, _ = lm_forward(params, batch, self.cfg,
+                                       mode="prefill")
+        return self._last_logits(params, hidden), caches
+
+    def decode(self, params, caches, batch):
+        """One token per sequence against ``caches`` (widened by the
+        caller): (logits (B, 1, vocab) f32, new caches)."""
+        hidden, new_caches = lm_decode_step(params, caches, batch, self.cfg)
+        return self._last_logits(params, hidden), new_caches
+
+    def _last_logits(self, params, hidden):
+        cfg = self.cfg
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        h = hidden[:, -1:, :]
+        logits = (h @ head.to(h.dtype)).float()
+        return logits[:, :, :cfg.vocab_size]  # drop sharding-pad classes
+
+    # ------------------------------------------------------ analytic model
     def model_flops(self, shape: ShapeSpec) -> float:
         """MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference), N active params."""
         n = self.cfg.active_param_count()

@@ -1,0 +1,457 @@
+"""Decoder-only stack covering dense / moe / ssm / hybrid / vlm, plus the
+encoder-decoder (port of ``repro.models.transformer``, serving paths).
+
+Layer weights are stacked on a leading L axis, as in the reference, so a
+tree of parameters matches ``model_defs`` leaf for leaf; the reference's
+``lax.scan`` over layers is a Python loop over that axis here, so
+``cfg.unroll_layers`` changes nothing.  ``cfg.remat_policy`` is a
+training knob (activation checkpointing) and has no effect on serving.
+
+Cache conventions (decode): the KV cache holds ``S`` slots; the decode
+step writes the new token's K/V at slot S-1 and attends over all S.
+After a prefill of S tokens the caller widens the cache by one slot per
+generated token (as ``examples/serve_decode.py`` does).  With
+``cfg.kv_cache_dtype="float8_e4m3fn"`` the cache is stored in f8,
+converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from .attention import chunked_attention, decode_attention
+from .layers import ParamDef, rmsnorm, rope, stack_defs, swiglu
+from .mamba2 import (mamba_apply, mamba_cache_defs, mamba_decode_step,
+                     mamba_defs)
+from .moe import moe_apply, moe_defs
+
+__all__ = ["attn_defs", "mlp_defs", "block_defs", "model_defs", "lm_forward",
+           "lm_decode_step", "cache_defs", "hidden_for_tokens",
+           "to_kv_dtype", "widen_caches"]
+
+# float8_e4m3fn's largest finite value is 448; ml_dtypes rounds |x| up to
+# 464 (the tie, to even) onto it and gives NaN beyond (there is no inf),
+# where torch's cast saturates to ±448.
+_F8_E4M3FN_OVERFLOW = 464.0
+
+
+def to_kv_dtype(t, dtype: torch.dtype):
+    """Cast to the cache's dtype; into float8_e4m3fn as ``ml_dtypes``
+    (the reference's ``astype``) does: NaN past the rounding range."""
+    if dtype == torch.float8_e4m3fn:
+        t = torch.where(t.float().abs() > _F8_E4M3FN_OVERFLOW,
+                        float("nan"), t)
+    return t.to(dtype)
+
+
+def widen_caches(caches: dict, slots: int = 1) -> dict:
+    """Append ``slots`` empty slots to every self-attention K/V cache
+    (``kv`` / ``shared_kv``; the encoder's ``cross_kv`` keeps its length):
+    one slot per token a decode step is about to write."""
+    out = dict(caches)
+    for k in ("kv", "shared_kv"):
+        if k in out:
+            out[k] = torch.nn.functional.pad(out[k],
+                                             (0, 0, 0, 0, 0, slots))
+    return out
+
+
+def _stack(items):
+    """Stack per-layer outputs (tensors or dicts of them) on a new axis 0."""
+    if isinstance(items[0], dict):
+        return {k: _stack([it[k] for it in items]) for k in items[0]}
+    return torch.stack(items)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree of stacked parameters or caches."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _num_layers(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
+
+
+# ----------------------------------------------------------------- attention
+
+def attn_defs(cfg, d_in: Optional[int] = None) -> dict:
+    d = d_in or cfg.d_model
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
+        "wq": ParamDef((d, h * hd), ("fsdp", "model")),
+        "wk": ParamDef((d, kh * hd), ("fsdp", "model")),
+        "wv": ParamDef((d, kh * hd), ("fsdp", "model")),
+        "wo": ParamDef((h * hd, d), ("model", "fsdp")),
+    }
+
+
+def _qkv(params, x, cfg):
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kh, hd)
+    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kh, hd)
+    return q, k, v
+
+
+def attn_apply(params, x, cfg, *, causal: bool = True, pos0: int = 0,
+               use_rope: bool = True):
+    """Full-sequence attention (prefill). Returns (out, (k, v))."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(params, x, cfg)
+    if use_rope:
+        positions = torch.arange(s, device=x.device) + pos0
+        q = rope(q, positions[None, :], cfg.rope_theta)
+        k = rope(k, positions[None, :], cfg.rope_theta)
+    out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
+                            q_offset=pos0, causal_unroll=cfg.attn_causal_unroll)
+    out = out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+    return out, (k, v)
+
+
+def attn_decode_apply(params, x, cfg, kv_cache, *, use_rope: bool = True):
+    """One-token decode. kv_cache: (2, B, S, Kh, hd); writes slot S-1 of a
+    copy (the caller's cache is left as it was)."""
+    b, s_new, _ = x.shape
+    if s_new != 1:
+        raise ValueError(f"decode takes one token per sequence, got {s_new}")
+    q, k, v = _qkv(params, x, cfg)
+    slot = kv_cache.shape[2] - 1
+    if use_rope:
+        positions = torch.full((1, 1), slot, device=x.device)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    new_kv = kv_cache.clone()
+    new_kv[0, :, slot] = to_kv_dtype(k[:, 0], kv_cache.dtype)
+    new_kv[1, :, slot] = to_kv_dtype(v[:, 0], kv_cache.dtype)
+    out = decode_attention(q, new_kv[0].to(x.dtype), new_kv[1].to(x.dtype))
+    out = out.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
+    return out, new_kv
+
+
+def cross_attn_apply(params, x, cfg, memory=None, kv_cache=None):
+    """Encoder-decoder cross attention; memory (B, S_src, d) or cached K/V."""
+    b, s, _ = x.shape
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
+    if kv_cache is None:
+        sk = memory.shape[1]
+        k = (memory @ params["wk"].to(x.dtype)).reshape(b, sk, kh, hd)
+        v = (memory @ params["wv"].to(x.dtype)).reshape(b, sk, kh, hd)
+        new_cache = (k, v)
+    else:
+        k, v = kv_cache[0].to(x.dtype), kv_cache[1].to(x.dtype)
+        new_cache = kv_cache
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    out = out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+    return out, new_cache
+
+
+# ----------------------------------------------------------------------- mlp
+
+def mlp_defs(cfg, d_ff: Optional[int] = None) -> dict:
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "w1": ParamDef((d, ff), ("fsdp", "model")),
+        "w3": ParamDef((d, ff), ("fsdp", "model")),
+        "w2": ParamDef((ff, d), ("model", "fsdp")),
+    }
+
+
+def mlp_apply(params, x):
+    return swiglu(x, params["w1"].to(x.dtype), params["w3"].to(x.dtype),
+                  params["w2"].to(x.dtype))
+
+
+# -------------------------------------------------------------------- blocks
+
+def block_defs(cfg) -> dict:
+    """One decoder layer's defs, by family."""
+    d = cfg.d_model
+    if cfg.family in ("dense", "vlm"):
+        return {"ln1": ParamDef((d,), (None,), init="ones"),
+                "attn": attn_defs(cfg),
+                "ln2": ParamDef((d,), (None,), init="ones"),
+                "mlp": mlp_defs(cfg)}
+    if cfg.family == "moe":
+        return {"ln1": ParamDef((d,), (None,), init="ones"),
+                "attn": attn_defs(cfg),
+                "ln2": ParamDef((d,), (None,), init="ones"),
+                "moe": moe_defs(cfg)}
+    if cfg.family in ("ssm", "hybrid"):
+        return {"ln1": ParamDef((d,), (None,), init="ones"),
+                "mamba": mamba_defs(cfg)}
+    raise ValueError(cfg.family)
+
+
+def shared_attn_defs(cfg) -> dict:
+    """zamba2's shared attention block: consumes concat(x, x0)."""
+    d = cfg.d_model
+    return {"w_in": ParamDef((2 * d, d), ("fsdp", "model")),
+            "ln1": ParamDef((d,), (None,), init="ones"),
+            "attn": attn_defs(cfg),
+            "ln2": ParamDef((d,), (None,), init="ones"),
+            "mlp": mlp_defs(cfg)}
+
+
+def block_apply(params, x, cfg, mode: str, kv_cache=None):
+    """Apply one layer (``mode`` "prefill" or "decode").
+    Returns (x, new cache, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("dense", "vlm", "moe"):
+        h = rmsnorm(x, params["ln1"])
+        if mode == "decode":
+            a, new_kv = attn_decode_apply(params["attn"], h, cfg, kv_cache)
+        else:
+            a, kv = attn_apply(params["attn"], h, cfg, causal=True)
+            new_kv = torch.stack(kv)
+        x = x + a
+        h = rmsnorm(x, params["ln2"])
+        if cfg.family == "moe":
+            m, aux = moe_apply(params["moe"], h, cfg)
+        else:
+            m = mlp_apply(params["mlp"], h)
+        return x + m, new_kv, aux
+    # ssm / hybrid mamba layer
+    h = rmsnorm(x, params["ln1"])
+    if mode == "decode":
+        m, new_state = mamba_decode_step(params["mamba"], kv_cache, h, cfg)
+    else:
+        m, new_state = mamba_apply(params["mamba"], h, cfg)
+    return x + m, new_state, aux
+
+
+def shared_attn_apply(params, x, x0, cfg, mode: str, kv_cache=None):
+    h = torch.cat([x, x0], dim=-1) @ params["w_in"].to(x.dtype)
+    h1 = rmsnorm(h, params["ln1"])
+    if mode == "decode":
+        a, new_kv = attn_decode_apply(params["attn"], h1, cfg, kv_cache)
+    else:
+        a, kv = attn_apply(params["attn"], h1, cfg, causal=True)
+        new_kv = torch.stack(kv)
+    h = h + a
+    h = h + mlp_apply(params["mlp"], rmsnorm(h, params["ln2"]))
+    return x + h, new_kv
+
+
+# -------------------------------------------------------------- model (defs)
+
+def hybrid_layout(cfg) -> Tuple[int, int, int]:
+    """(num_groups, layers_per_group, tail_layers) for zamba2-style stacks."""
+    k = cfg.shared_attn_every
+    groups = cfg.num_layers // k
+    tail = cfg.num_layers - groups * k
+    return groups, k, tail
+
+
+def model_defs(cfg) -> dict:
+    d, v = cfg.d_model, cfg.padded_vocab()
+    defs: Dict[str, Any] = {
+        "embed": ParamDef((v, d), (None, "model")),
+        "final_norm": ParamDef((d,), (None,), init="ones"),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((d, v), ("fsdp", "model"))
+    if cfg.family == "encdec":
+        enc_block = {"ln1": ParamDef((d,), (None,), init="ones"),
+                     "attn": attn_defs(cfg),
+                     "ln2": ParamDef((d,), (None,), init="ones"),
+                     "mlp": mlp_defs(cfg)}
+        dec_block = {"ln1": ParamDef((d,), (None,), init="ones"),
+                     "attn": attn_defs(cfg),
+                     "lnx": ParamDef((d,), (None,), init="ones"),
+                     "xattn": attn_defs(cfg),
+                     "ln2": ParamDef((d,), (None,), init="ones"),
+                     "mlp": mlp_defs(cfg)}
+        defs["encoder"] = stack_defs(enc_block, cfg.encoder_layers)
+        defs["decoder"] = stack_defs(dec_block, cfg.decoder_layers)
+        defs["enc_final_norm"] = ParamDef((d,), (None,), init="ones")
+        return defs
+    if cfg.family == "hybrid":
+        groups, k, tail = hybrid_layout(cfg)
+        defs["shared_attn"] = shared_attn_defs(cfg)
+        defs["groups"] = stack_defs(stack_defs(block_defs(cfg), k), groups)
+        if tail:
+            defs["tail"] = stack_defs(block_defs(cfg), tail)
+        return defs
+    defs["layers"] = stack_defs(block_defs(cfg), cfg.num_layers)
+    return defs
+
+
+def cache_defs(cfg, batch: int, seq: int) -> dict:
+    """Decode-cache defs (zero-initialized)."""
+    kh, hd = cfg.num_kv_heads, cfg.head_dim
+    kv = lambda l: ParamDef((l, 2, batch, seq, kh, hd),
+                            (None, None, "dp", "model", None, None),
+                            init="zeros")
+    if cfg.family in ("dense", "vlm", "moe"):
+        return {"kv": kv(cfg.num_layers)}
+    if cfg.family == "ssm":
+        return {"mamba": stack_defs(mamba_cache_defs(cfg, batch), cfg.num_layers)}
+    if cfg.family == "hybrid":
+        groups, k, tail = hybrid_layout(cfg)
+        out = {"mamba": stack_defs(stack_defs(mamba_cache_defs(cfg, batch), k), groups),
+               "shared_kv": kv(groups)}
+        if tail:
+            out["mamba_tail"] = stack_defs(mamba_cache_defs(cfg, batch), tail)
+        return out
+    if cfg.family == "encdec":
+        return {"kv": kv(cfg.decoder_layers),
+                "cross_kv": ParamDef((cfg.decoder_layers, 2, batch, seq, kh, hd),
+                                     (None, None, "dp", "model", None, None),
+                                     init="zeros")}
+    raise ValueError(cfg.family)
+
+
+# ------------------------------------------------------------- model (apply)
+
+def hidden_for_tokens(params, tokens, cfg):
+    """Embedding lookup; activations are always bf16."""
+    return params["embed"][tokens.long()].to(torch.bfloat16)
+
+
+def _run_layers(layers_params, x, cfg, mode, caches=None):
+    """Apply stacked layers in order, threading per-layer caches in and
+    out.  Returns (x, stacked new caches, summed aux)."""
+    new, aux = [], 0.0
+    for i in range(_num_layers(layers_params)):
+        x, c, a = block_apply(_layer(layers_params, i), x, cfg, mode,
+                              None if caches is None else _layer(caches, i))
+        new.append(c)
+        aux = aux + a
+    return x, _stack(new), aux
+
+
+def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "prefill"):
+    """Forward over a full sequence (``mode="prefill"``; the training
+    modes come with the training slice).
+
+    Returns (hidden (B,S,d), caches, aux).
+    `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
+    """
+    if mode != "prefill":
+        raise ValueError(f"repro_torch serves only: mode={mode!r}")
+    if cfg.family == "encdec":
+        return _encdec_forward(params, inputs, cfg)
+
+    x = hidden_for_tokens(params, inputs["tokens"], cfg)
+    if cfg.family == "vlm" and cfg.num_patch_tokens and "patch_embeds" in inputs:
+        pe = inputs["patch_embeds"].to(x.dtype)
+        x = x.clone()
+        x[:, :pe.shape[1]] = pe   # patch embeddings overwrite the first slots
+
+    if cfg.family == "hybrid":
+        return _hybrid_forward(params, x, cfg)
+
+    x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode)
+    x = rmsnorm(x, params["final_norm"])
+    key = "kv" if cfg.family in ("dense", "vlm", "moe") else "mamba"
+    return x, {key: new_caches}, aux
+
+
+def _hybrid_forward(params, x, cfg):
+    groups, k, tail = hybrid_layout(cfg)
+    x0 = x
+    shared, states, aux = [], [], 0.0
+    for gi in range(groups):
+        x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg,
+                                  "prefill")
+        x, st, a = _run_layers(_layer(params["groups"], gi), x, cfg,
+                               "prefill")
+        shared.append(kv)
+        states.append(st)
+        aux = aux + a
+    caches = {"mamba": _stack(states), "shared_kv": _stack(shared)}
+    if tail:
+        x, caches["mamba_tail"], a = _run_layers(params["tail"], x, cfg,
+                                                 "prefill")
+        aux = aux + a
+    x = rmsnorm(x, params["final_norm"])
+    return x, caches, aux
+
+
+def _encdec_forward(params, inputs, cfg):
+    memory = inputs["src_embeds"].to(torch.bfloat16)
+    enc = params["encoder"]
+    for i in range(_num_layers(enc)):
+        lp = _layer(enc, i)
+        a, _ = attn_apply(lp["attn"], rmsnorm(memory, lp["ln1"]), cfg,
+                          causal=False)
+        memory = memory + a
+        memory = memory + mlp_apply(lp["mlp"], rmsnorm(memory, lp["ln2"]))
+    memory = rmsnorm(memory, params["enc_final_norm"])
+
+    x = hidden_for_tokens(params, inputs["tokens"], cfg)
+    dec = params["decoder"]
+    kvs, xkvs = [], []
+    for i in range(_num_layers(dec)):
+        lp = _layer(dec, i)
+        a, kv = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
+                           causal=True)
+        x = x + a
+        a, xkv = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
+                                  memory=memory)
+        x = x + a
+        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+        kvs.append(torch.stack(kv))
+        xkvs.append(torch.stack(xkv))
+    x = rmsnorm(x, params["final_norm"])
+    caches = {"kv": torch.stack(kvs), "cross_kv": torch.stack(xkvs)}
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ------------------------------------------------------------------- decode
+
+def lm_decode_step(params, caches, inputs, cfg):
+    """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches)."""
+    x = hidden_for_tokens(params, inputs["tokens"], cfg)
+
+    if cfg.family in ("dense", "vlm", "moe"):
+        x, new_kv, _ = _run_layers(params["layers"], x, cfg, "decode",
+                                   caches["kv"])
+        return rmsnorm(x, params["final_norm"]), {"kv": new_kv}
+
+    if cfg.family == "ssm":
+        x, new_st, _ = _run_layers(params["layers"], x, cfg, "decode",
+                                   caches["mamba"])
+        return rmsnorm(x, params["final_norm"]), {"mamba": new_st}
+
+    if cfg.family == "hybrid":
+        groups, k, tail = hybrid_layout(cfg)
+        x0 = x
+        kvs, states = [], []
+        for gi in range(groups):
+            x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg,
+                                      "decode", caches["shared_kv"][gi])
+            x, st, _ = _run_layers(_layer(params["groups"], gi), x, cfg,
+                                   "decode", _layer(caches["mamba"], gi))
+            kvs.append(kv)
+            states.append(st)
+        new_caches = {"shared_kv": torch.stack(kvs), "mamba": _stack(states)}
+        if tail:
+            x, new_caches["mamba_tail"], _ = _run_layers(
+                params["tail"], x, cfg, "decode", caches["mamba_tail"])
+        return rmsnorm(x, params["final_norm"]), new_caches
+
+    if cfg.family == "encdec":
+        dec = params["decoder"]
+        kvs = []
+        for i in range(_num_layers(dec)):
+            lp = _layer(dec, i)
+            a, kv = attn_decode_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
+                                      caches["kv"][i])
+            x = x + a
+            a, _ = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
+                                    kv_cache=caches["cross_kv"][i])
+            x = x + a
+            x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+            kvs.append(kv)
+        return (rmsnorm(x, params["final_norm"]),
+                {"kv": torch.stack(kvs), "cross_kv": caches["cross_kv"]})
+
+    raise ValueError(cfg.family)

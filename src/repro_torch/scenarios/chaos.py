@@ -86,8 +86,9 @@ from repro_torch.core.envelopes import (freq_step_envelopes, laplacian,
 from repro_torch.core.frame_model import (PIPE_FRAMES, SIGNAL_VELOCITY,
                                           LinkParams, SimConfig, make_links)
 from repro_torch.core.topology import Topology
-from repro_torch.kernels.api import EngineOptions
+from repro_torch.kernels.api import EngineOptions, resolve_options
 from repro_torch.telemetry import Telemetry, coerce_trace
+from repro_torch.telemetry.api import resolve_telemetry
 
 from .events import (DriftRamp, FreqStep, LatencyStep, LinkDrop,
                      LinkRestore, NodeHoldover, NodeReset, Scenario)
@@ -684,7 +685,8 @@ class ChaosCampaign:
 
     def run(self, telemetry: Optional[Telemetry] = None,
             options: Optional[EngineOptions] = None, *,
-            device=None) -> CampaignResult:
+            device=None, record_watermarks: Optional[bool] = None,
+            trace=None) -> CampaignResult:
         """Build, simulate (one engine call sequence for all B draws), and
         triage.
 
@@ -701,11 +703,15 @@ class ChaosCampaign:
         (per-draw: ``result.watermarks[b]``).  ``options``
         (:class:`repro_torch.kernels.EngineOptions`) overrides the
         campaign's ``engine`` field and the runner's chunking.
-        ``device``: where to run; None means the CUDA card.
+        ``device``: where to run; None means the CUDA card.  The legacy
+        ``record_watermarks=`` / ``trace=`` kwargs keep working with a
+        once-per-process :class:`DeprecationWarning`.
         """
-        opts = (EngineOptions(engine=self.engine) if options is None
-                else options)
-        tel = Telemetry() if telemetry is None else telemetry
+        opts = resolve_options(options, "ChaosCampaign.run",
+                               default_engine=self.engine)
+        tel = resolve_telemetry(telemetry, "ChaosCampaign.run",
+                                watermarks=record_watermarks,
+                                trace=trace if trace else None)
         tr = coerce_trace(tel.trace, name=f"chaos:{self.name}")
         tel = dataclasses.replace(
             tel, beta=True, trace=tr,

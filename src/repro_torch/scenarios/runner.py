@@ -82,7 +82,8 @@ from repro_torch.core.frame_model import (EB_INIT, LinkParams, SimConfig,
 from repro_torch.core.reframing import (ReframePolicy, edge_occupancy,
                                         node_net_occupancy, shift_assignment)
 from repro_torch.core.topology import Topology
-from repro_torch.kernels.api import EngineOptions, EngineOutputs
+from repro_torch.kernels.api import (EngineOptions, EngineOutputs,
+                                    resolve_options)
 from repro_torch.kernels.bittide_sparse import ellify
 from repro_torch.kernels.bittide_step import (TILE_J, row_lists,
                                               select_engine, sparse_tile)
@@ -584,7 +585,13 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
                  cfg: SimConfig = SimConfig(),
                  compiled: Optional[CompiledScenario] = None,
                  options: Optional[EngineOptions] = None,
-                 telemetry=None, *, device=None) -> "ScenarioResult":
+                 telemetry=None, *, device=None,
+                 engine: Optional[str] = None,
+                 chunk_records: Optional[int] = None,
+                 record_beta: Optional[bool] = None,
+                 record_watermarks: Optional[bool] = None,
+                 auto_reframe=None, trace=None,
+                 interpret: Optional[bool] = None) -> "ScenarioResult":
     """Run a dynamic-event scenario, chaining one engine across segments.
 
     Args:
@@ -611,20 +618,37 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
         ``telemetry`` segment-sum follows ``cfg.record_beta`` and the
         kernel lanes record ν only.
       device: where to run; None means the CUDA card (raises without one).
+      engine, chunk_records, interpret: the reference's legacy spellings
+        of the ``options`` fields; ``interpret=`` warns once per process,
+        the other two map silently.
+      record_beta, record_watermarks, trace, auto_reframe: the legacy
+        spellings of ``telemetry.beta`` / ``.watermarks`` / ``.trace`` /
+        ``.guard``; each warns once per process.  As in the reference,
+        without ``telemetry`` and ``record_beta`` a legacy
+        ``auto_reframe=`` still records β in the result, and
+        ``auto_reframe`` with ``record_beta=False`` is refused.
 
     Returns:
       ScenarioResult with concatenated telemetry, threaded final state,
       and the per-segment logical-latency table.
     """
-    opts = EngineOptions(engine="segment-sum") if options is None else options
-    if not isinstance(opts, EngineOptions):
-        raise TypeError("options= must be a repro_torch.kernels."
-                        f"EngineOptions, got {type(opts).__name__}")
+    if auto_reframe and record_beta is False:
+        raise ValueError(
+            "auto_reframe inspects the β record; record_beta=False is "
+            "contradictory on this legacy spelling (the typed "
+            "telemetry=Telemetry(guard=...) runs the guard without "
+            "surfacing the record)")
+    opts = resolve_options(options, "run_scenario", engine=engine,
+                           interpret=interpret, chunk_records=chunk_records,
+                           default_engine="segment-sum")
     if opts.interpret:
         raise ValueError("repro_torch has no kernel interpreter; pass "
                          "device='cpu' to run the plain PyTorch versions")
-    beta_explicit = telemetry is not None
-    tel = resolve_telemetry(telemetry, "run_scenario")
+    beta_explicit = telemetry is not None or record_beta is not None
+    tel = resolve_telemetry(
+        telemetry, "run_scenario", beta=record_beta,
+        watermarks=record_watermarks, trace=trace if trace else None,
+        guard=auto_reframe if auto_reframe else None)
     engine = opts.engine
     dense = engine in _DENSE_ENGINES
     sparse = engine == "sparse"
@@ -686,6 +710,10 @@ def run_scenario(topo: Topology, links: LinkParams, ctrl: ControllerConfig,
         policy = (tel.guard if isinstance(tel.guard, ReframePolicy)
                   else ReframePolicy())
         b_g = 1 if single else ppm_u.shape[0]
+        if not beta_explicit:
+            # The legacy auto_reframe= implied the β record: keep it in
+            # the result, as the reference does.
+            rb_seg = rb_dense = True
         if policy.margin is None:
             # Per-draw margins: each draw's OWN gain and disturbance bound.
             kp_rows = np.asarray(broadcast_gain(ctrl.kp, b_g), np.float64)

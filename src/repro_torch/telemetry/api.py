@@ -12,8 +12,9 @@ module stays importable without the kernel stack, so ``trace`` and
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Any, Optional
+
+from repro_torch._compat import deprecated_kwarg
 
 __all__ = ["Telemetry", "resolve_telemetry"]
 
@@ -44,18 +45,16 @@ class Telemetry:
         object.__setattr__(self, "watermarks", bool(self.watermarks))
 
 
-_WARNED: set = set()
-
-
 def resolve_telemetry(telemetry: Optional[Telemetry], caller: str, *,
                       beta=None, watermarks=None, trace=None,
                       guard=None) -> Telemetry:
-    """Merge boolean kwargs into a :class:`Telemetry`.
+    """Merge legacy boolean kwargs into a :class:`Telemetry`.
 
-    Each kwarg is ``None`` when the caller did not pass it; a value wins
-    over the corresponding ``telemetry`` field and emits a once-per-process
-    :class:`DeprecationWarning` naming the typed spelling, as the
-    reference's one-release shims do.
+    Each legacy value is ``None`` when the caller did not pass it; a
+    non-``None`` value wins over the corresponding ``telemetry`` field and
+    emits the once-per-process :class:`DeprecationWarning` of
+    :func:`repro_torch._compat.deprecated_kwarg`, naming the typed
+    spelling.
     """
     base = telemetry if telemetry is not None else Telemetry()
     if not isinstance(base, Telemetry):
@@ -69,10 +68,6 @@ def resolve_telemetry(telemetry: Optional[Telemetry], caller: str, *,
                             ("guard", guard, "auto_reframe")):
         if val is None:
             continue
-        if old not in _WARNED:
-            _WARNED.add(old)
-            warnings.warn(f"{old}= is deprecated; use "
-                          f"telemetry=Telemetry({field}=...)",
-                          DeprecationWarning, stacklevel=3)
+        deprecated_kwarg(f"{old}=", f"telemetry=Telemetry({field}=...)")
         updates[field] = val
     return dataclasses.replace(base, **updates) if updates else base

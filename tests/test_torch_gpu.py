@@ -614,3 +614,34 @@ def test_perstep_guard_freezes_on_the_card(cuda):
                            got.nu.expand(kw["num_records"] - last - 1, -1))
         assert not got.beta[last + 1:].any()
         assert torch.equal(got.psi, want.psi)
+
+
+# Phase 12 (d): the model stack at ``.reduced()``, the same weights on the
+# card and on the CPU, at the reference's decode-vs-forward bar; and
+# decode == forward on the card for one dense and one ssm architecture.
+MODEL_ARCHS = ["arctic-480b", "internlm2-1.8b", "llama3-8b", "mamba2-370m",
+               "phi3-medium-14b", "pixtral-12b", "qwen2-moe-a2.7b",
+               "seamless-m4t-large-v2", "smollm-135m", "zamba2-7b"]
+
+
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_model_serving_card_matches_cpu(cuda, name):
+    row = chip_smoke.card_vs_cpu(name, cuda)
+    assert row["excess"] <= 0.0, row
+    assert row["tokens_equal"] == row["sure"], row
+
+
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-370m"])
+def test_model_decode_consistent_with_forward_on_the_card(cuda, name):
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelZoo, materialize
+    cfg = get_config(name).reduced()
+    zoo = ModelZoo(cfg)
+    params = materialize(zoo.param_defs(),
+                         torch.Generator(device=cuda).manual_seed(0),
+                         torch.float32, device=cuda)
+    tokens = chip_smoke.model_batch(cfg, 2, 32, 3, cuda)["tokens"]
+    with torch.inference_mode():
+        check = chip_smoke.decode_vs_forward(zoo, params, tokens)
+    assert check["excess"] <= 0.0, check
+    assert check["sure_equal"] == check["sure"], check

@@ -45,7 +45,9 @@ def test_imports_with_jax_and_repro_blocked():
         "repro_torch.models\n"
         "from repro_torch.serve import arrival, costmodel, pacing, engine\n"
         "from repro_torch.ft import straggler\n"
-        "from repro_torch.models import model_zoo\n"
+        "from repro_torch.models import model_zoo, layers, attention, "
+        "mamba2, moe, transformer\n"
+        "import repro_torch._compat\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -81,6 +83,27 @@ def test_card_side_linkdrop_bar_equals_the_reference_test():
     body = body[:body.index("\ndef ")]
     assert float(value) == float(re.search(r"atol=([0-9.e-]+)\)",
                                            body).group(1))
+
+
+def test_card_side_model_bars_equal_the_cpu_tests():
+    """Phase 12's bars (chip_smoke.py) are the CPU model tests': the
+    logit bar, the greedy margin, the f8 cache's bar and the witness
+    ratio of the parting at depth; the card tests run every
+    architecture."""
+    import test_torch_models_serving as serving
+    import test_torch_models_zoo as zoo
+    from repro_torch.configs import ARCH_NAMES
+    text = (ROOT / "chip_smoke.py").read_text()
+    value = lambda name: float(re.search(rf"^{name} = (\S+)$", text,
+                                         re.M).group(1))
+    assert value("LOGIT_TOL") == zoo.LOGIT_TOL
+    assert value("GREEDY_MARGIN") == serving.MARGIN
+    assert value("F8_REL") == zoo.F8_REL == 0.02
+    assert value("WITNESS_RATIO") == serving.WITNESS_RATIO
+    gpu = (ROOT / "tests" / "test_torch_gpu.py").read_text()
+    block = gpu[gpu.index("MODEL_ARCHS = ["):]
+    block = block[:block.index("]") + 1]
+    assert sorted(re.findall(r'"([^"]+)"', block)) == ARCH_NAMES
 
 
 def test_card_tests_take_the_card_side_bars():
@@ -157,6 +180,40 @@ def test_entry_points_without_device_raise_when_no_card(monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_model_entry_points_without_device_raise_when_no_card(monkeypatch):
+    """The model stack's builders run on the card unless given
+    ``device="cpu"``; ``prefill`` / ``decode`` follow the tensors they are
+    handed, so CPU tensors run on the CPU with no card."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelZoo, materialize, widen_caches
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    zoo = ModelZoo(cfg)
+    tree = {"embed": np.zeros((4, 2), np.float32),
+            "layers": {"w": np.ones((2, 3), np.float32)}}
+    calls = [
+        lambda: materialize(zoo.param_defs(), torch.Generator(),
+                            torch.float32),
+        lambda: materialize(zoo.param_defs(), torch.Generator(),
+                            torch.float32, device="cuda"),
+        lambda: convert.model_params(tree),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    params = materialize(zoo.param_defs(), torch.Generator().manual_seed(0),
+                         torch.float32, device="cpu")
+    toks = torch.zeros((2, 4), dtype=torch.int32)
+    with torch.inference_mode():
+        logits, caches = zoo.prefill(params, {"tokens": toks})
+        logits2, _ = zoo.decode(params, widen_caches(caches),
+                                {"tokens": toks[:, :1]})
+    assert logits.device.type == logits2.device.type == "cpu"
+    assert convert.model_params(tree, device="cpu")["layers"]["w"].shape \
+        == (2, 3)
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
