@@ -208,10 +208,46 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               (b)'s bar, the greedy tokens equal wherever the CPU's top-1
               / top-2 margin exceeds 4e-2.
 
+13. train   — the training path (``repro_torch.launch`` / ``optim`` /
+              ``data`` / ``checkpoint``; no kernel of the port: the
+              reference's training path reaches no ``pallas_call``).  (a)
+              examples/train_bittide_cluster.py at its full width: the
+              bittide sync of mesh2d(4, 4) (discrete controller, 24,000
+              steps; converged), ``ring_allreduce_schedule`` on its ring
+              order held by ``verify_bounded(depth_frames=4096)``,
+              ``simulate_stragglers`` as the example calls it; then
+              smollm-135m at full width and depth (30 layers, d 576,
+              vocab 49,152, tied head, f32 parameters) on seeded random
+              weights, AdamW(lr 3e-3, weight decay 0.01), the example's
+              step (``value_and_grad`` of ``train_loss``, then
+              ``adamw_update``), 100 steps of 8 × 256 tokens from
+              ``SyntheticPipeline(DataConfig(V, 256, 8, seed=0))``, an
+              async ``CheckpointManager(keep=2)`` save of step 50 under
+              ``build/``, restored into a fresh template: every leaf bit
+              for bit, and the step-50 loss recomputed forward-only from
+              it equal to the uninterrupted run's bit for bit.  The
+              step's median CUDA-event ms over steps 10–99, tokens/s,
+              peak memory, the loss every 10 steps, 6·N·D per step over
+              the step time against the dense bf16 peak, and
+              ``torch.profiler`` over three more steps (device busy, idle
+              share, device operations per step); every loss finite, the
+              last 10 losses' mean below the first 10's.  (b) mamba2-370m
+              at full width and depth (48 layers, d 1,024, state 128,
+              chunk 256), 4 × 256, 10 steps: the SSD scan's backward; as
+              (a) without the checkpoint.  (c) every architecture at
+              ``.reduced()``: ``train_loss`` and its gradients on the card
+              against the CPU from the same weights and batch (loss within
+              rel 2e-3, every gradient leaf within rtol 5e-2 / atol 5e-4,
+              or, for a bf16 sum that cancels, that bar at the leaf's
+              largest |gradient|: ``train_card_vs_cpu``), and one
+              ``adamw_update`` on each given the CPU's gradients (within 2
+              f32 ulps of each leaf's max |p|).
+
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
-run with a non-zero exit; without a CUDA card it exits 2 and prints no
-result.
+run with a non-zero exit.  It exits 3 with no result when the port
+(``src/repro_torch``) is not beside it, as when the script is copied
+alone into an empty directory, and 2 without a CUDA card.
 """
 import contextlib
 import json
@@ -2887,7 +2923,327 @@ def run_models(dev, smi):
     return out
 
 
+# Phase 13's bars: tests/test_torch_train_zoo.py's (tests/test_perf_knobs.py's
+# loss and gradient bars), and its AdamW bar (f32 ulps of each leaf's max
+# |p|; tests/test_torch_train_modules.py).
+TRAIN_LOSS_REL = 2e-3
+TRAIN_GRAD_RTOL = 5e-2
+TRAIN_GRAD_ATOL = 5e-4
+ADAMW_F32_ULPS = 2
+# H100 SXM dense bf16 tensor-core peak, without sparsity (NVIDIA data
+# sheet): the yardstick of phase 13's 6·N·D share.
+PEAK_BF16_FLOPS = 989e12
+# examples/train_bittide_cluster.py: the ring order of its AOT all-reduce
+TRAIN_RING_ORDER = [0, 1, 2, 3, 7, 6, 5, 4, 8, 9, 10, 11, 15, 14, 13, 12]
+
+
+def train_batch(cfg, b, s, seed, dev):
+    """``model_batch`` plus ``labels`` (int32) from ``default_rng(seed +
+    1)``."""
+    import numpy as np
+    import torch
+    batch = model_batch(cfg, b, s, seed, dev)
+    batch["labels"] = torch.tensor(
+        np.random.default_rng(seed + 1).integers(0, cfg.vocab_size, (b, s)),
+        dtype=torch.int32, device=dev)
+    return batch
+
+
+def bit_equal(a, b) -> bool:
+    """Whether two tensors hold the same bits (0.0 and -0.0 apart)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                8: torch.int64}[a.element_size()]
+        a, b = a.view(ints), b.view(ints)
+    return torch.equal(a, b)
+
+
+def train_loop(zoo, params, opt, opt_state, data, steps, dev, ckpt=None,
+               ckpt_step=None):
+    """examples/train_bittide_cluster.py's loop: ``value_and_grad`` of
+    ``train_loss``, then ``adamw_update`` (no ``lr_schedule``).  Returns
+    the final params and state, the losses and gradient norms (host
+    floats), each step's CUDA-event ms and host wall, and, with ``ckpt``
+    (a ``CheckpointManager``), the state saved asynchronously as step
+    ``ckpt_step`` (after that many updates) and a host copy of it."""
+    import torch
+    from repro_torch._tree import tree_map
+    from repro_torch.launch import value_and_grad
+    from repro_torch.optim import adamw_update
+    loss_and_grads = value_and_grad(zoo.train_loss)
+    losses, norms, events, walls, saved = [], [], [], [], None
+    for step in range(steps):
+        batch = data.batch(step, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss, grads = loss_and_grads(params, batch)
+        params, opt_state, gnorm = adamw_update(grads, opt_state, params, opt)
+        ev[1].record()
+        walls.append(time.perf_counter() - t0)
+        del grads
+        losses.append(loss)
+        norms.append(gnorm)
+        events.append(ev)
+        if ckpt is not None and step + 1 == ckpt_step:
+            state = {"params": params, "opt": opt_state}
+            ckpt.save(ckpt_step, state, blocking=False)
+            saved = tree_map(lambda t: t.detach().cpu(), state)
+    torch.cuda.synchronize()
+    return dict(params=params, opt_state=opt_state,
+                losses=[float(x) for x in losses],
+                grad_norms=[float(x) for x in norms],
+                step_ms=[a.elapsed_time(b) for a, b in events],
+                step_wall_s=walls, saved=saved)
+
+
+def train_full_width(name, dev, smi, b, s, steps, time_from, ckpt_dir=None,
+                     ckpt_step=None):
+    """Phase 13 (a) / (b): ``name`` at full width and depth on random f32
+    weights from a seeded generator, AdamW(lr 3e-3, weight decay 0.01),
+    ``steps`` steps on ``SyntheticPipeline(DataConfig(V, s, b, seed=0))``;
+    with ``ckpt_dir``, an async checkpoint of step ``ckpt_step`` restored
+    into a fresh template and checked bit for bit, leaf by leaf and by the
+    forward loss it gives."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import CheckpointManager, restore
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import value_and_grad
+    from repro_torch.models import ModelZoo, materialize
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    cfg = get_config(name)
+    zoo = ModelZoo(cfg)
+    params = materialize(zoo.param_defs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, device=dev)
+    opt = AdamWConfig(lr=3e-3, weight_decay=0.01)
+    opt_state = adamw_init(params, opt)
+    data = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=0))
+    mgr = None
+    if ckpt_dir is not None:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        mgr = CheckpointManager(str(ckpt_dir), keep=2)
+    n_params = tree_bytes(params) // 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train_loop(zoo, params, opt, opt_state, data, steps, dev, mgr,
+                     ckpt_step)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params, opt_state = run["params"], run["opt_state"]
+
+    # the device's busy and idle time over three more steps
+    loss_and_grads = value_and_grad(zoo.train_loss)
+    more = [data.batch(steps + i, device=dev) for i in range(3)]
+
+    def three_steps():
+        p, st = params, opt_state
+        for batch in more:
+            _, grads = loss_and_grads(p, batch)
+            p, st, _ = adamw_update(grads, st, p, opt)
+    prof = device_busy(three_steps)
+
+    step_ms = float(np.median(run["step_ms"][time_from:]))
+    flops = zoo.model_flops(ShapeSpec("train", "train", s, b))
+    losses = run["losses"]
+    row = dict(
+        phase="train", part=name, nvidia_smi=smi, batch=b, seq=s,
+        steps=steps, layers=cfg.num_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, params=n_params,
+        optimizer=dict(lr=opt.lr, weight_decay=opt.weight_decay,
+                       moments=opt.moment_dtype),
+        step_ms_median=step_ms, step_ms_from=time_from,
+        step_ms_first=run["step_ms"][0],
+        step_wall_s_median=float(np.median(run["step_wall_s"][time_from:])),
+        tokens_per_s=b * s / step_ms * 1e3, train_wall_s=wall,
+        peak_memory_bytes=peak,
+        model_flops_per_step=flops,
+        model_flops_share_of_bf16_peak=flops / (step_ms / 1e3)
+        / PEAK_BF16_FLOPS,
+        peak_note="6·N·D per step over the step's median CUDA-event time, "
+                  "against 989 TFLOP/s (H100 SXM dense bf16, NVIDIA data "
+                  "sheet) at the card's power limit above",
+        profile_3_steps=prof,
+        device_ops_per_step=prof["device_ops"] / 3,
+        losses_every_10=losses[::10] + [losses[-1]],
+        grad_norms_every_10=run["grad_norms"][::10],
+        loss_first10_mean=float(np.mean(losses[:10])),
+        loss_last10_mean=float(np.mean(losses[-10:])))
+    assert all(np.isfinite(losses)), (name, losses)
+    if mgr is not None:
+        mgr.wait()
+        saved = run["saved"]
+        template = {"params": materialize(
+            zoo.param_defs(), torch.Generator(device=dev).manual_seed(1),
+            torch.float32, device=dev), "opt": adamw_init(params, opt)}
+        t0 = time.perf_counter()
+        got = restore(str(ckpt_dir), ckpt_step, template, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(got),
+                                              tree_leaves(saved))]
+        with torch.no_grad():
+            loss = float(zoo.train_loss(got["params"],
+                                        data.batch(ckpt_step, device=dev)))
+        row["checkpoint"] = dict(
+            step=ckpt_step, kept=sorted(p.name for p in ckpt_dir.iterdir()
+                                        if p.name.startswith("step_")),
+            leaves=len(pairs),
+            leaves_bit_identical=sum(bit_equal(a, b) for a, b in pairs),
+            restore_s=restore_s, resumed_loss=loss,
+            uninterrupted_loss=losses[ckpt_step],
+            loss_bit_identical=loss == losses[ckpt_step])
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit(row)
+    if mgr is not None:
+        ck = row["checkpoint"]
+        assert ck["leaves_bit_identical"] == ck["leaves"], ck
+        assert ck["loss_bit_identical"], ck
+    return row
+
+
+def train_card_vs_cpu(name, dev, b=2, s=64) -> dict:
+    """Phase 13 (c): one architecture at ``.reduced()``, the same weights
+    (drawn on the CPU) and batch on the card and the CPU: ``train_loss``
+    and its gradients, then one ``adamw_update`` on each device given the
+    CPU's gradients.  The worst excess over each bar (≤ 0 passes).  A
+    gradient leaf over the elementwise bar (a bf16 sum that cancels, as
+    the SSM convolution's: on the CPU the reference's own jitted and
+    op-by-op gradients part past that bar there) is held at the bar taken
+    at its largest |gradient| and listed in ``leaf_scale``
+    (tests/test_torch_train_zoo.py holds the CPU to the reference so)."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_flatten_with_path
+    from repro_torch.configs import get_config
+    from repro_torch.launch import value_and_grad
+    from repro_torch.models import ModelZoo, materialize
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    cfg = get_config(name).reduced()
+    zoo = ModelZoo(cfg)
+    p_cpu = materialize(zoo.param_defs(), torch.Generator().manual_seed(0),
+                        torch.float32, device="cpu")
+    b_cpu = train_batch(cfg, b, s, 1, "cpu")
+    vg = value_and_grad(zoo.train_loss)
+    loss_c, g_c = vg(p_cpu, b_cpu)
+    loss_d, g_d = vg(tree_to(p_cpu, dev), tree_to(b_cpu, dev))
+    row = dict(name=name, loss_cpu=float(loss_c), loss_card=float(loss_d),
+               loss_rel=abs(float(loss_d) - float(loss_c)) / abs(
+                   float(loss_c)),
+               grad_excess=-1.0, grad_worst_leaf=None, leaf_scale=[],
+               adamw_excess=-1.0, adamw_worst_leaf=None)
+    for (path, gc), (_, gd) in zip(tree_flatten_with_path(g_c),
+                                   tree_flatten_with_path(g_d)):
+        gc, gd = gc.float(), gd.float().cpu()
+        diff = (gd - gc).abs()
+        ex = float((diff - (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
+                            * gc.abs())).max())
+        if ex > 0.0:
+            ex = float(diff.max()) - (TRAIN_GRAD_ATOL + TRAIN_GRAD_RTOL
+                                      * float(gc.abs().max()))
+            row["leaf_scale"].append(dict(
+                leaf="/".join(path), err=float(diff.max()),
+                max_abs=float(gc.abs().max()), excess=ex))
+        if not np.isfinite(ex) or ex > row["grad_excess"]:
+            row["grad_excess"], row["grad_worst_leaf"] = ex, "/".join(path)
+    opt = AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
+    st = adamw_init(p_cpu, opt)
+    new_c, _, n_c = adamw_update(g_c, st, p_cpu, opt)
+    new_d, _, n_d = adamw_update(tree_to(g_c, dev), tree_to(st, dev),
+                                 tree_to(p_cpu, dev), opt)
+    row["adamw_grad_norm_cpu"], row["adamw_grad_norm_card"] = (
+        float(n_c), float(n_d))
+    for (path, pc), (_, pd) in zip(tree_flatten_with_path(new_c),
+                                   tree_flatten_with_path(new_d)):
+        bar = ADAMW_F32_ULPS * float(np.spacing(np.float32(
+            pc.abs().max())))
+        ex = float((pd.cpu() - pc).abs().max()) - bar
+        if not np.isfinite(ex) or ex > row["adamw_excess"]:
+            row["adamw_excess"], row["adamw_worst_leaf"] = ex, "/".join(path)
+    return row
+
+
+def run_train(dev, smi):
+    """Phase 13: the training path on the card (see the module
+    docstring)."""
+    import numpy as np
+    from repro_torch.configs import ARCH_NAMES
+    from repro_torch.core import (BittideNetwork, ControllerConfig,
+                                  OscillatorSpec, SimConfig, mesh2d,
+                                  ring_allreduce_schedule, verify_bounded)
+    from repro_torch.ft import simulate_stragglers
+    t_phase = time.perf_counter()
+    # (a) examples/train_bittide_cluster.py's flow: sync, the AOT ring,
+    # straggler pacing, then smollm-135m
+    topo = mesh2d(4, 4)
+    net = BittideNetwork.build(topo, cable_m=2.0,
+                               osc=OscillatorSpec(initial_ppm=8.0, seed=0),
+                               device=dev)
+    sync, sync_s = timed(lambda: net.sync(
+        ctrl=ControllerConfig(kind="discrete", kp=4e-8, fs=1e-7,
+                              pulses_per_update=50),
+        cfg=SimConfig(dt=5e-5, steps=24_000, record_every=40,
+                      quantize_beta=True)))
+    sched = ring_allreduce_schedule(sync.lsn, TRAIN_RING_ORDER,
+                                    chunk_frames=256, combine_ticks=32)
+    bounded = verify_bounded(sched, sync.lsn, depth_frames=4096)
+    rep, strag_s = timed(lambda: simulate_stragglers(
+        topo, np.random.default_rng(1).uniform(-20_000, 20_000,
+                                               topo.num_nodes),
+        duration_s=1000.0, device=dev))
+    cluster = dict(phase="train", part="cluster", nvidia_smi=smi,
+                   topology=topo.name, converged=sync.converged,
+                   convergence_time_s=sync.convergence_time_s,
+                   freq_spread_ppm=sync.freq_spread_ppm, sync_wall_s=sync_s,
+                   ring_transfers=len(sched.events),
+                   ring_makespan_ticks=sched.makespan_ticks,
+                   ring_bounded=bool(bounded),
+                   straggler_queue_peak=rep.controlled_queue_peak,
+                   straggler_uncontrolled_peak=rep.uncontrolled_queue_peak,
+                   straggler_throughput_ratio=rep.throughput_ratio,
+                   straggler_wall_s=strag_s)
+    emit(cluster)
+    assert sync.converged, cluster
+    assert bounded, cluster
+    out = dict(cluster=cluster)
+    out["smollm"] = train_full_width(
+        "smollm-135m", dev, smi, b=8, s=256, steps=100, time_from=10,
+        ckpt_dir=ROOT / "build" / "phase13_ckpt", ckpt_step=50)
+    sm = out["smollm"]
+    assert sm["loss_last10_mean"] < sm["loss_first10_mean"], sm
+    # (b) mamba2-370m: the SSD scan's backward at full width and depth
+    out["mamba2"] = train_full_width("mamba2-370m", dev, smi, b=4, s=256,
+                                     steps=10, time_from=1)
+    # (c) every architecture, reduced: the card against the CPU
+    rows = [train_card_vs_cpu(name, dev) for name in ARCH_NAMES]
+    emit(dict(phase="train", part="card_vs_cpu", nvidia_smi=smi,
+              bars=dict(loss_rel=TRAIN_LOSS_REL, grad_rtol=TRAIN_GRAD_RTOL,
+                        grad_atol=TRAIN_GRAD_ATOL,
+                        adamw_f32_ulps=ADAMW_F32_ULPS), rows=rows))
+    for r in rows:
+        assert r["loss_rel"] <= TRAIN_LOSS_REL, r
+        assert r["grad_excess"] <= 0.0, r
+        assert r["adamw_excess"] <= 0.0, r
+    out["card_vs_cpu"] = rows
+    emit(dict(phase="train", part="total",
+              seconds=time.perf_counter() - t_phase))
+    return out
+
+
 def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no port beside the script ({ROOT / 'src'} "
+              "holds no repro_torch)", file=sys.stderr)
+        return 3
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2991,6 +3347,11 @@ def main() -> int:
     # 12. model serving: smollm-135m and mamba2-370m at full width, every
     # architecture (reduced) on the card against the CPU; no kernel
     run_models(dev, smi)
+
+    # 13. the training path: the example's cluster flow and smollm-135m
+    # for 100 steps with a checkpoint, mamba2-370m, every architecture
+    # (reduced) on the card against the CPU; no kernel
+    run_train(dev, smi)
 
     # The kernels line, the card line, the last line.  Launches: the main
     # paths' counts (phases 3, 4, 6, 7, 8, 9, 10 and 11; the fused, tiled and

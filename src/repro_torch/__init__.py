@@ -10,15 +10,19 @@ layer (``repro_torch.scenarios``), the telemetry types
 (``repro_torch.telemetry``), the bittide-paced serving simulator
 (``repro_torch.serve``, on the copied ``configs`` and
 ``models.ModelZoo.model_flops``), straggler pacing (``repro_torch.ft``),
-the model stack's serving paths (``repro_torch.models``: every family's
-prefill and decode) and ``repro_torch.convert``, which carries the
-reference's objects (a model's weights and caches too) across.  The
+the model stack (``repro_torch.models``: every family's training loss,
+prefill and decode), the training path (``repro_torch.optim``: AdamW;
+``repro_torch.data``: the synthetic stream; ``repro_torch.checkpoint``;
+``repro_torch.launch``: the train step) and ``repro_torch.convert``,
+which carries the reference's objects (a model's weights, caches and
+optimizer state too) across.  The
 reference's one-release legacy engine kwargs warn once per process
 (``repro_torch._compat``).
 Entry points run on the CUDA card unless called with ``device="cpu"``.
 """
-from . import (configs, convert, core, ft, kernels, models, scenarios, serve,
-               telemetry)
+from . import (checkpoint, configs, convert, core, data, ft, kernels, launch,
+               models, optim, scenarios, serve, telemetry)
 
-__all__ = ["configs", "convert", "core", "ft", "kernels", "models",
-           "scenarios", "serve", "telemetry"]
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "ft",
+           "kernels", "launch", "models", "optim", "scenarios", "serve",
+           "telemetry"]

@@ -4,8 +4,9 @@ A network and its state are this system's weights: the topology, the link
 parameters, the controller and simulation configs, and a prior result
 used as ``init=``; a scenario (its events) and a reframing policy carry a
 dynamic run across the same way, and a ``BittideNetwork`` the facade's
-whole network.  A model's parameter tree and its decode caches
-(nested dicts of arrays) carry across leaf for leaf.  Each converter reads
+whole network.  A model's parameter tree, its decode caches and an
+AdamW state (``mu`` / ``nu`` / ``count``; nested dicts of arrays) carry
+across leaf for leaf.  Each converter reads
 the reference object by attribute or by structure (duck typing, so this
 module imports nothing of ``repro``) and returns the port's type with
 numpy arrays or tensors::
@@ -125,15 +126,19 @@ def _tensor(a, device, dtype) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a).view(view).copy()).view(tdt)
     else:
         t = torch.from_numpy(np.array(a, copy=True))
-    return t.to(device=device, dtype=dtype or t.dtype)
+    if dtype is None or not t.is_floating_point():
+        dtype = t.dtype
+    return t.to(device=device, dtype=dtype)
 
 
 def model_params(tree, device=None, dtype=None):
-    """A reference parameter or decode-cache tree (nested dicts of arrays,
-    e.g. ``jax.tree.map(np.asarray, materialize(...))`` or ``prefill``'s
-    caches) as the port's tree of tensors, leaf for leaf, on ``device``
-    (None means the CUDA card), cast to ``dtype`` when given; bf16 and
-    float8 leaves keep their bits."""
+    """A reference parameter, decode-cache or optimizer-state tree (nested
+    dicts of arrays, e.g. ``jax.tree.map(np.asarray, materialize(...))``,
+    ``prefill``'s caches or ``adamw_init``'s ``{"mu", "nu", "count"}``)
+    as the port's tree of tensors, leaf for leaf, on ``device`` (None
+    means the CUDA card); floating leaves are cast to ``dtype`` when it
+    is given (an integer leaf such as ``count`` keeps its dtype); bf16
+    and float8 leaves keep their bits."""
     dev = resolve_device(device)
 
     def go(t):

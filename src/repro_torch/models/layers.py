@@ -15,12 +15,13 @@ Activations are bf16 and norms compute in f32, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
+from repro_torch._tree import tree_map
 
 __all__ = ["ParamDef", "materialize", "stack_defs", "tree_map", "rmsnorm",
            "layernorm", "swiglu", "gelu_mlp", "rope", "dtype_of"]
@@ -40,14 +41,6 @@ class ParamDef:
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
-
-
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a tree of nested dicts, keys sorted
-    (the order ``jax.tree`` flattens a dict in)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
 
 
 def materialize(defs, generator: torch.Generator, dtype: torch.dtype,

@@ -104,7 +104,11 @@ def _ssd_chunked(xh, dt, a_log, bmat, cmat, chunk):
         dta_c, bc, cc, xc = dta[:, sl], bmat[:, sl], cmat[:, sl], dtx[:, sl]
         cum = torch.cumsum(dta_c, dim=1)                     # (B,Q,H)
         seg = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
-        L = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        # exp of the masked segment sums: the same values as the
+        # reference's where(tri, exp(seg), 0), but above the diagonal
+        # exp(seg) overflows for long chunks (seg grows with Q), and the
+        # reference's gradient takes 0 · inf = NaN there
+        L = torch.exp(torch.where(tri[None, :, :, None], seg, -torch.inf))
         # intra-chunk: y = ((C B^T) ∘ L) @ Δx
         cb = torch.einsum("bin,bjn->bij", cc.float(), bc.float())  # (B,Q,Q)
         w = cb[..., None] * L                                # (B,Q,Q,H)

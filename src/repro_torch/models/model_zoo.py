@@ -1,20 +1,21 @@
-"""Model zoo API of the port: the serving entry points of
+"""Model zoo API of the port: the entry points of
 ``repro.models.model_zoo``.
 
     zoo = ModelZoo(cfg)
     defs   = zoo.param_defs()                   # ParamDef tree
     params = materialize(defs, generator, torch.float32)   # on the card
     batch  = zoo.input_defs(shape)              # InputDef tree (+ dtypes)
+    loss   = zoo.train_loss(params, batch)      # differentiable scalar
     logits, caches = zoo.prefill(params, batch)
     logits, caches = zoo.decode(params, widen_caches(caches), {"tokens": t})
     flops  = zoo.model_flops(shape)             # 6·N·D train, 2·N·D serve
 
-The tensors handed to ``prefill`` / ``decode`` carry the device;
+The tensors handed to the forward paths carry the device;
 ``materialize`` runs on the CUDA card unless called with ``device="cpu"``,
-and raises with no card.  ``prefill`` builds the decode caches.  Call
-the forward paths under ``torch.inference_mode()``.  ``train_loss``
-(``losses.chunked_xent`` and gradients) is not ported yet: it comes with
-the training slice.
+and raises with no card.  ``train_loss`` is differentiated with
+``torch.autograd`` (``repro_torch.launch.train.value_and_grad``);
+``prefill`` builds the decode caches, and serving may run it and
+``decode`` under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
+from .losses import chunked_xent
 from .transformer import cache_defs, lm_decode_step, lm_forward, model_defs
 
 __all__ = ["ModelZoo", "InputDef"]
@@ -67,6 +69,17 @@ class ModelZoo:
         return out
 
     # ------------------------------------------------------------- fwd paths
+    def train_loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token cross-entropy over the batch (``tokens``,
+        ``labels``, and the family's embeddings) + 0.01 · the MoE
+        balance term."""
+        cfg = self.cfg
+        hidden, _, aux = lm_forward(params, batch, cfg, mode="train")
+        head = params["embed"].T if cfg.tie_embeddings else params["head"]
+        loss = chunked_xent(hidden, head, batch["labels"], cfg.loss_chunk,
+                            valid_vocab=cfg.vocab_size)
+        return loss + 0.01 * aux
+
     def prefill(self, params, batch):
         """Full-sequence forward: (last-position logits (B, 1, vocab) f32,
         caches)."""

@@ -1,11 +1,16 @@
 """Decoder-only stack covering dense / moe / ssm / hybrid / vlm, plus the
-encoder-decoder (port of ``repro.models.transformer``, serving paths).
+encoder-decoder (port of ``repro.models.transformer``): the training
+forward, prefill and the decode step.
 
 Layer weights are stacked on a leading L axis, as in the reference, so a
 tree of parameters matches ``model_defs`` leaf for leaf; the reference's
 ``lax.scan`` over layers is a Python loop over that axis here, so
-``cfg.unroll_layers`` changes nothing.  ``cfg.remat_policy`` is a
-training knob (activation checkpointing) and has no effect on serving.
+``cfg.unroll_layers`` changes nothing.  In ``mode="train"`` the forward
+builds no caches and checkpoints activations where the reference puts
+``jax.checkpoint`` (each layer; the hybrid's whole group; the encoder
+and decoder layers), by ``cfg.remat_policy``: ``"nothing"`` saves only
+each body's inputs, ``"dots"`` saves the matmul outputs too, ``"none"``
+saves everything.  The policy changes memory, not values.
 
 Cache conventions (decode): the KV cache holds ``S`` slots; the decode
 step writes the new token's K/V at slot S-1 and attends over all S.
@@ -16,9 +21,12 @@ converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .attention import chunked_attention, decode_attention
 from .layers import ParamDef, rmsnorm, rope, stack_defs, swiglu
@@ -64,17 +72,16 @@ def _stack(items):
     return torch.stack(items)
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a tree of stacked parameters or caches."""
+def _unstack(tree) -> list:
+    """A tree of stacked parameters or caches as a list of per-layer
+    trees (views).  One ``unbind`` per leaf: its gradient is one stack,
+    where indexing layer by layer would build a zero-filled full-size
+    gradient per layer."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
-
-
-def _num_layers(tree) -> int:
-    while isinstance(tree, dict):
-        tree = next(iter(tree.values()))
-    return tree.shape[0]
+        per_key = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ----------------------------------------------------------------- attention
@@ -101,7 +108,7 @@ def _qkv(params, x, cfg):
 
 def attn_apply(params, x, cfg, *, causal: bool = True, pos0: int = 0,
                use_rope: bool = True):
-    """Full-sequence attention (prefill). Returns (out, (k, v))."""
+    """Full-sequence attention (train / prefill). Returns (out, (k, v))."""
     b, s, _ = x.shape
     q, k, v = _qkv(params, x, cfg)
     if use_rope:
@@ -200,8 +207,8 @@ def shared_attn_defs(cfg) -> dict:
 
 
 def block_apply(params, x, cfg, mode: str, kv_cache=None):
-    """Apply one layer (``mode`` "prefill" or "decode").
-    Returns (x, new cache, aux)."""
+    """Apply one layer (``mode`` "train", "prefill" or "decode").
+    Returns (x, new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         h = rmsnorm(x, params["ln1"])
@@ -209,7 +216,7 @@ def block_apply(params, x, cfg, mode: str, kv_cache=None):
             a, new_kv = attn_decode_apply(params["attn"], h, cfg, kv_cache)
         else:
             a, kv = attn_apply(params["attn"], h, cfg, causal=True)
-            new_kv = torch.stack(kv)
+            new_kv = torch.stack(kv) if mode == "prefill" else None
         x = x + a
         h = rmsnorm(x, params["ln2"])
         if cfg.family == "moe":
@@ -222,7 +229,8 @@ def block_apply(params, x, cfg, mode: str, kv_cache=None):
     if mode == "decode":
         m, new_state = mamba_decode_step(params["mamba"], kv_cache, h, cfg)
     else:
-        m, new_state = mamba_apply(params["mamba"], h, cfg)
+        m, state = mamba_apply(params["mamba"], h, cfg)
+        new_state = state if mode == "prefill" else None
     return x + m, new_state, aux
 
 
@@ -233,7 +241,7 @@ def shared_attn_apply(params, x, x0, cfg, mode: str, kv_cache=None):
         a, new_kv = attn_decode_apply(params["attn"], h1, cfg, kv_cache)
     else:
         a, kv = attn_apply(params["attn"], h1, cfg, causal=True)
-        new_kv = torch.stack(kv)
+        new_kv = torch.stack(kv) if mode == "prefill" else None
     h = h + a
     h = h + mlp_apply(params["mlp"], rmsnorm(h, params["ln2"]))
     return x + h, new_kv
@@ -315,29 +323,62 @@ def hidden_for_tokens(params, tokens, cfg):
     return params["embed"][tokens.long()].to(torch.bfloat16)
 
 
-def _run_layers(layers_params, x, cfg, mode, caches=None):
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_saveable``: keep the matmuls'
+    outputs, recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(body, cfg, mode: str):
+    """``body`` under activation checkpointing per ``cfg.remat_policy``
+    when it trains (``mode="train"`` with gradients on), else as it is.
+    The parameters reach ``body`` as arguments or through its closure;
+    only the non-reentrant checkpoint sees the latter."""
+    if mode != "train" or not torch.is_grad_enabled():
+        return body
+    if cfg.remat_policy == "none":
+        return body
+    if cfg.remat_policy == "nothing":
+        kw = {}
+    elif cfg.remat_policy == "dots":
+        kw = dict(context_fn=functools.partial(
+            create_selective_checkpoint_contexts, _save_dots))
+    else:
+        raise ValueError(f"remat_policy={cfg.remat_policy!r}")
+    return functools.partial(checkpoint, body, use_reentrant=False,
+                             preserve_rng_state=False, **kw)
+
+
+def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True):
     """Apply stacked layers in order, threading per-layer caches in and
-    out.  Returns (x, stacked new caches, summed aux)."""
+    out.  Returns (x, stacked new caches or None in train mode, summed
+    aux)."""
+    body = _remat(block_apply, cfg, mode) if remat else block_apply
+    layers = _unstack(layers_params)
+    caches = [None] * len(layers) if caches is None else _unstack(caches)
     new, aux = [], 0.0
-    for i in range(_num_layers(layers_params)):
-        x, c, a = block_apply(_layer(layers_params, i), x, cfg, mode,
-                              None if caches is None else _layer(caches, i))
+    for lp, cache in zip(layers, caches):
+        x, c, a = body(lp, x, cfg, mode, cache)
         new.append(c)
         aux = aux + a
-    return x, _stack(new), aux
+    return x, (_stack(new) if mode != "train" else None), aux
 
 
-def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "prefill"):
-    """Forward over a full sequence (``mode="prefill"``; the training
-    modes come with the training slice).
+def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train"):
+    """Forward over a full sequence, ``mode`` "train" or "prefill".
 
-    Returns (hidden (B,S,d), caches, aux).
+    Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
     """
-    if mode != "prefill":
-        raise ValueError(f"repro_torch serves only: mode={mode!r}")
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"lm_forward: mode={mode!r}")
     if cfg.family == "encdec":
-        return _encdec_forward(params, inputs, cfg)
+        return _encdec_forward(params, inputs, cfg, mode)
 
     x = hidden_for_tokens(params, inputs["tokens"], cfg)
     if cfg.family == "vlm" and cfg.num_patch_tokens and "patch_embeds" in inputs:
@@ -346,63 +387,81 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "prefill"):
         x[:, :pe.shape[1]] = pe   # patch embeddings overwrite the first slots
 
     if cfg.family == "hybrid":
-        return _hybrid_forward(params, x, cfg)
+        return _hybrid_forward(params, x, cfg, mode)
 
     x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode)
     x = rmsnorm(x, params["final_norm"])
+    if mode == "train":
+        return x, None, aux
     key = "kv" if cfg.family in ("dense", "vlm", "moe") else "mamba"
     return x, {key: new_caches}, aux
 
 
-def _hybrid_forward(params, x, cfg):
-    groups, k, tail = hybrid_layout(cfg)
+def _hybrid_forward(params, x, cfg, mode):
+    tail = hybrid_layout(cfg)[2]
     x0 = x
+
+    def group_body(gp, x):
+        x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg, mode)
+        x, st, a = _run_layers(gp, x, cfg, mode, remat=False)
+        return x, kv, st, a
+
+    group_body = _remat(group_body, cfg, mode)
     shared, states, aux = [], [], 0.0
-    for gi in range(groups):
-        x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg,
-                                  "prefill")
-        x, st, a = _run_layers(_layer(params["groups"], gi), x, cfg,
-                               "prefill")
+    for gp in _unstack(params["groups"]):
+        x, kv, st, a = group_body(gp, x)
         shared.append(kv)
         states.append(st)
         aux = aux + a
-    caches = {"mamba": _stack(states), "shared_kv": _stack(shared)}
     if tail:
-        x, caches["mamba_tail"], a = _run_layers(params["tail"], x, cfg,
-                                                 "prefill")
+        x, tail_states, a = _run_layers(params["tail"], x, cfg, mode)
         aux = aux + a
     x = rmsnorm(x, params["final_norm"])
+    if mode == "train":
+        return x, None, aux
+    caches = {"mamba": _stack(states), "shared_kv": _stack(shared)}
+    if tail:
+        caches["mamba_tail"] = tail_states
     return x, caches, aux
 
 
-def _encdec_forward(params, inputs, cfg):
+def _enc_layer(lp, x, cfg):
+    a, _ = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg, causal=False)
+    x = x + a
+    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+
+
+def _dec_layer(lp, x, memory, cfg, mode):
+    a, kv = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg, causal=True)
+    x = x + a
+    a, xkv = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
+                              memory=memory)
+    x = x + a
+    x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+    if mode == "train":
+        return x, None
+    return x, (torch.stack(kv), torch.stack(xkv))
+
+
+def _encdec_forward(params, inputs, cfg, mode):
     memory = inputs["src_embeds"].to(torch.bfloat16)
-    enc = params["encoder"]
-    for i in range(_num_layers(enc)):
-        lp = _layer(enc, i)
-        a, _ = attn_apply(lp["attn"], rmsnorm(memory, lp["ln1"]), cfg,
-                          causal=False)
-        memory = memory + a
-        memory = memory + mlp_apply(lp["mlp"], rmsnorm(memory, lp["ln2"]))
+    enc_body = _remat(_enc_layer, cfg, mode)
+    for lp in _unstack(params["encoder"]):
+        memory = enc_body(lp, memory, cfg)
     memory = rmsnorm(memory, params["enc_final_norm"])
 
     x = hidden_for_tokens(params, inputs["tokens"], cfg)
-    dec = params["decoder"]
-    kvs, xkvs = [], []
-    for i in range(_num_layers(dec)):
-        lp = _layer(dec, i)
-        a, kv = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
-                           causal=True)
-        x = x + a
-        a, xkv = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
-                                  memory=memory)
-        x = x + a
-        x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
-        kvs.append(torch.stack(kv))
-        xkvs.append(torch.stack(xkv))
+    dec_body = _remat(_dec_layer, cfg, mode)
+    caches = []
+    for lp in _unstack(params["decoder"]):
+        x, c = dec_body(lp, x, memory, cfg, mode)
+        caches.append(c)
     x = rmsnorm(x, params["final_norm"])
-    caches = {"kv": torch.stack(kvs), "cross_kv": torch.stack(xkvs)}
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        return x, None, aux
+    return x, {"kv": torch.stack([c[0] for c in caches]),
+               "cross_kv": torch.stack([c[1] for c in caches])}, aux
 
 
 # ------------------------------------------------------------------- decode
@@ -422,14 +481,15 @@ def lm_decode_step(params, caches, inputs, cfg):
         return rmsnorm(x, params["final_norm"]), {"mamba": new_st}
 
     if cfg.family == "hybrid":
-        groups, k, tail = hybrid_layout(cfg)
+        tail = hybrid_layout(cfg)[2]
         x0 = x
         kvs, states = [], []
-        for gi in range(groups):
+        for gp, kv, st in zip(_unstack(params["groups"]),
+                              _unstack(caches["shared_kv"]),
+                              _unstack(caches["mamba"])):
             x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg,
-                                      "decode", caches["shared_kv"][gi])
-            x, st, _ = _run_layers(_layer(params["groups"], gi), x, cfg,
-                                   "decode", _layer(caches["mamba"], gi))
+                                      "decode", kv)
+            x, st, _ = _run_layers(gp, x, cfg, "decode", st)
             kvs.append(kv)
             states.append(st)
         new_caches = {"shared_kv": torch.stack(kvs), "mamba": _stack(states)}
@@ -439,15 +499,15 @@ def lm_decode_step(params, caches, inputs, cfg):
         return rmsnorm(x, params["final_norm"]), new_caches
 
     if cfg.family == "encdec":
-        dec = params["decoder"]
         kvs = []
-        for i in range(_num_layers(dec)):
-            lp = _layer(dec, i)
+        for lp, kv, xkv in zip(_unstack(params["decoder"]),
+                               _unstack(caches["kv"]),
+                               _unstack(caches["cross_kv"])):
             a, kv = attn_decode_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
-                                      caches["kv"][i])
+                                      kv)
             x = x + a
             a, _ = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
-                                    kv_cache=caches["cross_kv"][i])
+                                    kv_cache=xkv)
             x = x + a
             x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
             kvs.append(kv)

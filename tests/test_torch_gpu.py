@@ -50,7 +50,12 @@ and grouped) and per-step kernels on a diverged draw
 after a record) give the plain version's inf / NaN pattern bit for bit,
 all four watermark arrays included.  The serving simulator's pacing
 ensemble (``pace_workers(engine="fused")``) holds every engine call at
-0.0 error to the plain version.
+0.0 error to the plain version.  The model stack serves every
+architecture at ``.reduced()`` on the card as on the CPU (phase 12), and
+trains them so (phase 13: the loss, its gradients and one AdamW update
+at the CPU training tests' bars); a checkpoint written on the CPU
+restores on the card bit for bit, and the synthetic stream gives the
+same tokens on both.
 """
 import importlib.util
 from pathlib import Path
@@ -645,3 +650,39 @@ def test_model_decode_consistent_with_forward_on_the_card(cuda, name):
         check = chip_smoke.decode_vs_forward(zoo, params, tokens)
     assert check["excess"] <= 0.0, check
     assert check["sure_equal"] == check["sure"], check
+
+
+# Phase 13 (c): the training path at ``.reduced()`` on the card against the
+# CPU, at the CPU tests' bars (chip_smoke.py restates them;
+# tests/test_torch_package_rules.py ties the copies together).
+@pytest.mark.parametrize("name", MODEL_ARCHS)
+def test_train_step_card_matches_cpu(cuda, name):
+    row = chip_smoke.train_card_vs_cpu(name, cuda)
+    assert row["loss_rel"] <= chip_smoke.TRAIN_LOSS_REL, row
+    assert row["grad_excess"] <= 0.0, row
+    assert row["adamw_excess"] <= 0.0, row
+
+
+def test_checkpoint_from_the_cpu_restores_on_the_card(cuda, tmp_path):
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import restore, save
+    tree = {"params": {"w": torch.linspace(-2, 2, 12).reshape(3, 4),
+                       "b": torch.linspace(-1, 1, 5).to(torch.bfloat16)},
+            "opt": {"count": torch.tensor(3, dtype=torch.int32)}}
+    save(str(tmp_path), 3, tree)
+    out = restore(str(tmp_path), 3, tree)
+    for a, b in zip(tree_leaves(out), tree_leaves(tree)):
+        assert a.device.type == "cuda"
+        assert chip_smoke.bit_equal(a.cpu(), b)
+
+
+def test_synthetic_batches_equal_on_card_and_cpu(cuda):
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    data = SyntheticPipeline(DataConfig(49_152, 256, 8, seed=0))
+    for step in (0, 50):
+        got, want = data.batch(step), data.batch(step, device="cpu")
+        for k in ("tokens", "labels"):
+            assert got[k].device.type == "cuda"
+            assert torch.equal(got[k].cpu(), want[k])
+        np.testing.assert_array_equal(want["tokens"].numpy(),
+                                      data.batch_numpy(step)["tokens"])

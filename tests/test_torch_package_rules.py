@@ -46,7 +46,13 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.serve import arrival, costmodel, pacing, engine\n"
         "from repro_torch.ft import straggler\n"
         "from repro_torch.models import model_zoo, layers, attention, "
-        "mamba2, moe, transformer\n"
+        "mamba2, moe, transformer, losses\n"
+        "import repro_torch.optim, repro_torch.data, repro_torch.checkpoint, "
+        "repro_torch.launch, repro_torch._tree\n"
+        "from repro_torch.optim import adamw\n"
+        "from repro_torch.data import pipeline\n"
+        "from repro_torch.checkpoint import manager\n"
+        "from repro_torch.launch import train\n"
         "import repro_torch._compat\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
@@ -104,6 +110,38 @@ def test_card_side_model_bars_equal_the_cpu_tests():
     block = gpu[gpu.index("MODEL_ARCHS = ["):]
     block = block[:block.index("]") + 1]
     assert sorted(re.findall(r'"([^"]+)"', block)) == ARCH_NAMES
+
+
+def test_card_side_train_bars_equal_the_cpu_tests():
+    """Phase 13's bars (chip_smoke.py, taken by the card tests) are the
+    CPU training tests': the loss bar, the gradient bar and AdamW's f32
+    ulps; the card tests hold every architecture."""
+    import test_torch_train_modules as modules
+    import test_torch_train_zoo as zoo
+    text = (ROOT / "chip_smoke.py").read_text()
+    value = lambda name: float(re.search(rf"^{name} = (\S+)$", text,
+                                         re.M).group(1))
+    assert value("TRAIN_LOSS_REL") == zoo.LOSS_REL == modules.LOSS_REL
+    assert value("TRAIN_GRAD_RTOL") == zoo.GRAD_RTOL == modules.GRAD_RTOL
+    assert value("TRAIN_GRAD_ATOL") == zoo.GRAD_ATOL == modules.GRAD_ATOL
+    assert value("ADAMW_F32_ULPS") == modules.F32_ULP_BAR
+    gpu = (ROOT / "tests" / "test_torch_gpu.py").read_text()
+    assert "def test_train_step_card_matches_cpu(cuda, name)" in gpu
+    assert "chip_smoke.TRAIN_LOSS_REL" in gpu
+
+
+def test_chip_smoke_alone_exits_without_a_result(tmp_path):
+    """Copied into a directory that holds nothing else of the repo, the
+    script finds no port beside it: it exits 3 and prints no result."""
+    (tmp_path / "chip_smoke.py").write_text(
+        (ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120,
+                          env={k: v for k, v in os.environ.items()
+                               if k != "PYTHONPATH"})
+    assert proc.returncode == 3, proc.stderr
+    assert proc.stdout == ""
+    assert "no port beside the script" in proc.stderr
 
 
 def test_card_tests_take_the_card_side_bars():
@@ -214,6 +252,42 @@ def test_model_entry_points_without_device_raise_when_no_card(monkeypatch):
     assert logits.device.type == logits2.device.type == "cpu"
     assert convert.model_params(tree, device="cpu")["layers"]["w"].shape \
         == (2, 3)
+
+
+def test_train_entry_points_without_device_raise_when_no_card(
+        monkeypatch, tmp_path):
+    """The training path's builders run on the card unless given
+    ``device="cpu"``: ``init_train_state``, ``SyntheticPipeline.batch`` and
+    ``restore`` raise with no card; the train step follows the tensors
+    it is handed."""
+    from repro_torch.checkpoint import CheckpointManager, restore, save
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import init_train_state, make_train_step
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    data = SyntheticPipeline(DataConfig(cfg.vocab_size, 64, 2))
+    save(str(tmp_path), 1, {"w": torch.ones(2)})
+    calls = [
+        lambda: init_train_state(cfg, None, torch.Generator()),
+        lambda: data.batch(0),
+        lambda: data.batch(0, device="cuda"),
+        lambda: restore(str(tmp_path), 1, {"w": torch.ones(2)}),
+        lambda: CheckpointManager(str(tmp_path)).restore_latest(
+            {"w": torch.ones(2)}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(NotImplementedError, match="mesh"):
+        init_train_state(cfg, object(), torch.Generator(), device="cpu")
+    params, opt_state = init_train_state(
+        cfg, None, torch.Generator().manual_seed(0), device="cpu")
+    _, _, metrics = make_train_step(cfg)(params, opt_state,
+                                         data.batch(0, device="cpu"), 0)
+    assert metrics["loss"].device.type == "cpu" and metrics["step"] == 1
+    assert restore(str(tmp_path), 1, {"w": torch.ones(2)},
+                   device="cpu")["w"].device.type == "cpu"
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
