@@ -241,7 +241,30 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               or, for a bf16 sum that cancels, that bar at the leaf's
               largest |gradient|: ``train_card_vs_cpu``), and one
               ``adamw_update`` on each given the CPU's gradients (within 2
-              f32 ulps of each leaf's max |p|).
+              f32 ulps of each leaf's max |p|).  Its step-50 checkpoint
+              stays under ``build/phase13_ckpt`` for phase 14.
+14. mesh    — the distributed training path (``launch.mesh``,
+              ``ft.elastic``, placements by ``pspec_tree``, the mesh step,
+              ``sched.pipeline``, ``optim.compression``; no kernel) on a
+              one-rank NCCL group (``HashStore``; NCCL takes one rank per
+              card, so the multi-rank semantics are the CPU tests'
+              on gloo): ``remesh([0], model_size=1)`` gives a (1, 1)
+              ("data", "model") mesh; phase 13's step-50 smollm-135m
+              checkpoint restored onto it with ``shardings``, every leaf
+              bit for bit with a plain ``restore``; 5 steps of
+              ``make_train_step`` on the mesh and 5 on plain tensors from
+              the same state and batches (8 × 256, steps 50–54), the loss
+              and every parameter and moment bit for bit after each; the
+              step's CUDA-event ms of both, peak memory and all-reduces per
+              step; a save from the mesh, ``plan_mesh(1, 1)``, a restore
+              through ``remesh`` and one more step, its loss bit for bit
+              with the uninterrupted run's; ``ef_roundtrip`` and
+              ``compressed_psum`` over every gradient leaf on the card, bit
+              for bit with the same on the CPU (a gloo group); a one-stage
+              ``pipeline_apply`` of 8 microbatches of ``tanh(h @ w)`` at
+              d 576, bit for bit with the chain, and ``plan``'s makespan
+              and bubble for ring(4).  The group is destroyed and the
+              checkpoints removed.
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -3102,7 +3125,6 @@ def train_full_width(name, dev, smi, b, s, steps, time_from, ckpt_dir=None,
             restore_s=restore_s, resumed_loss=loss,
             uninterrupted_loss=losses[ckpt_step],
             loss_bit_identical=loss == losses[ckpt_step])
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
     emit(row)
     if mgr is not None:
         ck = row["checkpoint"]
@@ -3239,6 +3261,224 @@ def run_train(dev, smi):
     return out
 
 
+def mesh_state_bits(mesh_state, plain_state) -> list:
+    """The leaves (by path) of a state on a mesh whose full arrays differ
+    in any bit from a plain state's."""
+    from repro_torch._tree import tree_flatten_with_path, tree_leaves
+    return ["/".join(path) for (path, a), b in zip(
+        tree_flatten_with_path(mesh_state), tree_leaves(plain_state))
+        if not bit_equal(a.full_tensor(), b)]
+
+
+def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
+             s=256, steps=5):
+    """Phase 14: the distributed training path on a one-rank mesh (see the
+    module docstring).  Restores phase 13's checkpoint of ``name`` at
+    ``ckpt_step`` and removes it when done."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch._tree import tree_flatten_with_path, tree_leaves, tree_map
+    from repro_torch.checkpoint import CheckpointManager, restore
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_links, ring
+    from repro_torch.core.latency import logical_latency
+    from repro_torch.core.schedule import LogicalSynchronyNetwork
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.ft import plan_mesh, remesh
+    from repro_torch.launch import (make_mesh_from_devices, make_train_step,
+                                    state_shardings, value_and_grad)
+    from repro_torch.models import ModelZoo
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.compression import compressed_psum, ef_roundtrip
+    from repro_torch.sched import pipeline_apply, plan
+    t_phase = time.perf_counter()
+    cfg = get_config(name)
+    zoo = ModelZoo(cfg)
+    opt = AdamWConfig(lr=3e-3, weight_decay=0.01)
+    data = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=0))
+    meta = {"params": tree_map(
+        lambda d: torch.empty(d.shape, dtype=torch.float32, device="meta"),
+        zoo.param_defs())}
+    meta["opt"] = adamw_init(meta["params"], opt)
+
+    # 1. a one-rank group and its (1, 1) ("data", "model") mesh
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    card = {}
+    if dev.type == "cuda":
+        card["device_id"] = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(card["device_id"])
+    t0 = time.perf_counter()
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1, **card)
+    try:
+        mesh = remesh([0], model_size=1, device_type=dev.type)
+        init_s = time.perf_counter() - t0
+        assert tuple(mesh.shape) == (1, 1), mesh
+
+        # 2. phase 13's checkpoint onto the mesh, against a plain restore
+        t0 = time.perf_counter()
+        state = restore(str(ckpt_dir), ckpt_step, meta,
+                        shardings=state_shardings(cfg, mesh))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        plain = restore(str(ckpt_dir), ckpt_step, meta, device=dev)
+        diff = mesh_state_bits(state, plain)
+        row = dict(phase="mesh", part=name, nvidia_smi=smi, batch=b, seq=s,
+                   backend=backend, mesh=list(mesh.shape),
+                   axes=list(mesh.mesh_dim_names), init_s=init_s,
+                   restore_s=restore_s, restored_from_step=ckpt_step,
+                   leaves=len(tree_leaves(plain)), restore_bits_differ=diff)
+        assert not diff, row
+
+        # 3. the mesh step against the plain step, bit for bit
+        step_fn = make_train_step(cfg, opt)
+        p_m, o_m = state["params"], state["opt"]
+        p, o = plain["params"], plain["opt"]
+        mesh_ms, plain_ms, mesh_peak, plain_peak, reduces = [], [], [], [], []
+        losses = []
+
+        def timed_step(*args):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.reset_peak_memory_stats()
+            ev[0].record()
+            out = step_fn(*args)
+            ev[1].record()
+            torch.cuda.synchronize()
+            return out, ev[0].elapsed_time(ev[1]), \
+                torch.cuda.max_memory_allocated()
+
+        for i in range(steps):
+            n = ckpt_step + i
+            batch = data.batch(n, device=dev)
+            (p_m, o_m, mm), ms_m, peak_m = timed_step(p_m, o_m, batch, n)
+            (p, o, m), ms_p, peak_p = timed_step(p, o, batch, n)
+            mesh_ms.append(ms_m)
+            plain_ms.append(ms_p)
+            mesh_peak.append(peak_m)
+            plain_peak.append(peak_p)
+            reduces.append(mm["all_reduces"])
+            losses.append(float(m["loss"]))
+            diff = mesh_state_bits({"params": p_m, "opt": o_m},
+                                   {"params": p, "opt": o})
+            if not bit_equal(mm["loss"], m["loss"]):
+                diff.append("loss")
+            if diff:
+                row["step_bits_differ"] = dict(step=n, leaves=diff)
+                emit(row)
+                raise AssertionError(row)
+        row.update(steps=steps, step_numbers=[ckpt_step, ckpt_step + steps - 1],
+                   losses=losses, mesh_step_ms=mesh_ms, plain_step_ms=plain_ms,
+                   mesh_step_ms_median=float(np.median(mesh_ms)),
+                   plain_step_ms_median=float(np.median(plain_ms)),
+                   mesh_peak_memory_bytes=max(mesh_peak),
+                   plain_peak_memory_bytes=max(plain_peak),
+                   all_reduces_per_step=reduces,
+                   steps_bit_identical=steps)
+
+        # 4. save from the mesh, re-mesh the survivors, resume
+        resume_dir = Path(str(ckpt_dir) + "_mesh")
+        shutil.rmtree(resume_dir, ignore_errors=True)
+        mgr = CheckpointManager(str(resume_dir), keep=1)
+        n = ckpt_step + steps
+        (_, save_s) = timed(lambda: mgr.save(n, {"params": p_m, "opt": o_m}))
+        survivors = [0]
+        assert plan_mesh(len(survivors), 1) == (1, 1)
+        mesh2 = remesh(survivors, model_size=1, device_type=dev.type)
+        got_n, resumed = mgr.restore_latest(
+            meta, shardings=state_shardings(cfg, mesh2))
+        assert got_n == n, got_n
+        batch = data.batch(n, device=dev)
+        _, _, m_resumed = step_fn(resumed["params"], resumed["opt"], batch, n)
+        _, _, m_on = step_fn(p_m, o_m, batch, n)
+        row["resume"] = dict(
+            step=n, save_s=save_s, survivors=survivors,
+            mesh=list(mesh2.shape),
+            restore_bits_differ=mesh_state_bits(
+                resumed, tree_map(lambda t: t.full_tensor(),
+                                  {"params": p_m, "opt": o_m})),
+            resumed_loss=float(m_resumed["loss"]),
+            uninterrupted_loss=float(m_on["loss"]),
+            loss_bit_identical=bit_equal(m_resumed["loss"], m_on["loss"]))
+        shutil.rmtree(resume_dir, ignore_errors=True)
+        del resumed, state, plain, o_m, o, p
+
+        # 5. compression over every gradient leaf, the card against the CPU
+        _, grads = value_and_grad(zoo.train_loss)(
+            tree_map(lambda t: t.full_tensor(), p_m), batch)
+        del p_m
+        cpu = dist.new_group(backend="gloo")
+        flat = tree_flatten_with_path(grads)
+        comp = dict(leaves=len(flat), elements=sum(g.numel() for _, g in flat),
+                    payload_bits_differ=[], residual_bits_differ=[],
+                    psum_bits_differ=[])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        card_ef = [ef_roundtrip(g, torch.zeros_like(g)) for _, g in flat]
+        ev[1].record()
+        card_ps = [compressed_psum(g, torch.zeros_like(g), (mesh, "data"))
+                   for _, g in flat]
+        ev[2].record()
+        torch.cuda.synchronize()
+        comp["ef_roundtrip_ms"] = ev[0].elapsed_time(ev[1])
+        comp["compressed_psum_ms"] = ev[1].elapsed_time(ev[2])
+        for (path, g), (deq, res), (mean, res2) in zip(flat, card_ef,
+                                                        card_ps):
+            key = "/".join(path)
+            g_cpu = g.cpu()
+            deq_c, res_c = ef_roundtrip(g_cpu, torch.zeros_like(g_cpu))
+            mean_c, res2_c = compressed_psum(g_cpu, torch.zeros_like(g_cpu),
+                                             cpu)
+            if not (bit_equal(deq.cpu(), deq_c)):
+                comp["payload_bits_differ"].append(key)
+            if not (bit_equal(res.cpu(), res_c) and bit_equal(res2.cpu(),
+                                                               res2_c)):
+                comp["residual_bits_differ"].append(key)
+            if not bit_equal(mean.cpu(), mean_c):
+                comp["psum_bits_differ"].append(key)
+        row["compression"] = comp
+        del grads, card_ef, card_ps
+
+        # 6. the bittide-scheduled pipeline, one stage, smollm's width
+        d = cfg.d_model
+        rng = np.random.default_rng(0)
+        ws = torch.tensor(rng.normal(0, d ** -0.5, (1, d, d)),
+                          dtype=torch.float32, device=dev)
+        x = torch.tensor(rng.normal(0, 1, (8, b, d)), dtype=torch.float32,
+                         device=dev)
+        stage_mesh = make_mesh_from_devices([0], (1,), ("stage",),
+                                            device_type=dev.type)
+        stage_fn = lambda w, h: torch.tanh(h @ w)
+        (out, pipe_s) = timed(lambda: pipeline_apply(stage_fn, ws, x,
+                                                     stage_mesh, "stage", 8))
+        chain = torch.stack([stage_fn(ws[0], x[i]) for i in range(8)])
+        topo = ring(4)
+        lsn = LogicalSynchronyNetwork(topo, logical_latency(topo,
+                                                            make_links(topo)))
+        pl = plan(lsn, list(range(4)), 6, fwd_ticks=100, bwd_ticks=0,
+                  activation_frames=8)
+        row["pipeline"] = dict(
+            stages=1, microbatches=8, shape=list(x.shape), wall_s=pipe_s,
+            bit_identical_to_chain=bit_equal(out, chain),
+            ring4_plan=dict(makespan_ticks=pl.makespan_ticks,
+                            bubble_fraction=pl.bubble_fraction,
+                            bounded=pl.bounded))
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    assert not row["resume"]["restore_bits_differ"], row["resume"]
+    assert row["resume"]["loss_bit_identical"], row["resume"]
+    for k in ("payload_bits_differ", "residual_bits_differ",
+              "psum_bits_differ"):
+        assert not comp[k], comp
+    assert row["pipeline"]["bit_identical_to_chain"], row["pipeline"]
+    assert row["pipeline"]["ring4_plan"]["bounded"], row["pipeline"]
+    return row
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no port beside the script ({ROOT / 'src'} "
@@ -3352,6 +3592,11 @@ def main() -> int:
     # for 100 steps with a checkpoint, mamba2-370m, every architecture
     # (reduced) on the card against the CPU; no kernel
     run_train(dev, smi)
+
+    # 14. the distributed training path on a one-rank NCCL mesh: phase
+    # 13's checkpoint restored onto the mesh, the mesh step against the
+    # plain step, the re-mesh and resume, compression, the pipeline
+    run_mesh(dev, smi, ROOT / "build" / "phase13_ckpt")
 
     # The kernels line, the card line, the last line.  Launches: the main
     # paths' counts (phases 3, 4, 6, 7, 8, 9, 10 and 11; the fused, tiled and

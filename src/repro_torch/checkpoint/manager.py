@@ -14,8 +14,14 @@ package restores in the other.  Writes go to a tmp directory renamed
 into place (atomic on POSIX): a crash mid-save never corrupts the
 latest checkpoint.
 
-``restore`` puts the leaves on one device; placing them across a mesh
-comes with the elastic / mesh slice.
+A tree of DTensors (a state on a ``DeviceMesh``) saves from every rank
+of the default process group: each leaf is gathered to its full array
+(``full_tensor``, collective, in tree order), rank 0 writes, and every
+rank waits at a barrier (``CheckpointManager``: in ``wait``, after an
+asynchronous write).  ``restore`` puts the leaves on one device, or with
+``shardings`` distributes each onto a mesh by its placements —
+including a mesh other than the one that saved, which is what makes
+elastic rescale (``ft.elastic``) work.
 """
 from __future__ import annotations
 
@@ -31,8 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
-from repro_torch._tree import (tree_flatten_with_path, tree_map,
-                               tree_unflatten)
+from repro_torch._tree import tree_flatten_with_path, tree_unflatten
 
 __all__ = ["save", "restore", "latest_step", "CheckpointManager"]
 
@@ -43,6 +48,26 @@ def _flatten(tree):
     flat = tree_flatten_with_path(tree)
     names = ["/".join(f"[{k!r}]" for k in path) for path, _ in flat]
     return names, [leaf for _, leaf in flat], [path for path, _ in flat]
+
+
+def _on_mesh(leaves) -> bool:
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(t, DTensor) for t in leaves)
+
+
+def _host_copy(leaf: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of a leaf; a DTensor's full array (collective)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
+    return leaf.detach().to("cpu", copy=True)
+
+
+def _writes(on_mesh: bool) -> bool:
+    """Whether this process writes: every process for a local tree, rank
+    0 of the default group for a tree on a mesh."""
+    import torch.distributed as dist
+    return not on_mesh or dist.get_rank() == 0
 
 
 def _to_numpy(leaf: torch.Tensor):
@@ -56,9 +81,23 @@ def _to_numpy(leaf: torch.Tensor):
 
 def save(ckpt_dir: str, step: int, tree: Any,
          extra: Optional[Dict] = None) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
-    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    """Write ``tree`` as step ``step``; on a mesh, collective over the
+    default group (see the module docstring)."""
     names, leaves, _ = _flatten(tree)
+    on_mesh = _on_mesh(leaves)
+    if on_mesh:
+        leaves = [_host_copy(leaf) for leaf in leaves]
+    final = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if _writes(on_mesh):
+        _write(ckpt_dir, final, step, names, leaves, extra)
+    if on_mesh:
+        import torch.distributed as dist
+        dist.barrier()
+    return final
+
+
+def _write(ckpt_dir, final, step, names, leaves, extra) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     stored = [_to_numpy(leaf) for leaf in leaves]
     arrays = {n: a for n, (a, _) in zip(names, stored)}
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
@@ -76,7 +115,6 @@ def save(ckpt_dir: str, step: int, tree: Any,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return final
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -90,12 +128,15 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, template: Any, shardings: Any = None,
+            device=None) -> Any:
     """Restore into the structure of ``template`` (a tree of tensors, or
     of anything with a torch ``dtype``), each leaf cast to its template's
-    dtype, on ``device``; None means the CUDA card (raises without
+    dtype.  With ``shardings`` (a matching tree of ``(mesh, placements)``
+    pairs) each leaf is distributed from the full array onto its mesh —
+    any mesh, not only the one that saved; every rank of the mesh calls
+    this.  Else on ``device``; None means the CUDA card (raises without
     one)."""
-    dev = resolve_device(device)
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
@@ -104,16 +145,26 @@ def restore(ckpt_dir: str, step: int, template: Any, device=None) -> Any:
         missing = set(names) ^ set(meta["names"])
         raise ValueError(
             f"checkpoint/template structure mismatch: {sorted(missing)[:5]}")
+    if shardings is None:
+        dev = resolve_device(device)
+        place = [lambda t, dev=dev: t.to(dev)] * len(leaves)
+    else:
+        from torch.distributed.tensor import distribute_tensor
+        flat = tree_flatten_with_path(shardings)
+        if [p for p, _ in flat] != paths:
+            raise ValueError("shardings do not match the template's tree")
+        place = [lambda t, m=m, pl=pl: distribute_tensor(
+            t.to(m.device_type), m, pl) for _, (m, pl) in flat]
     saved_dtypes = meta.get("dtypes", {})
     out = []
     with np.load(os.path.join(path, "arrays.npz")) as data:
-        for n, tmpl in zip(names, leaves):
+        for n, tmpl, put in zip(names, leaves, place):
             arr = data[n]
             if saved_dtypes.get(n) == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(arr)
-            out.append(t.to(device=dev, dtype=tmpl.dtype))
+            out.append(put(t.to(dtype=tmpl.dtype)))
     return tree_unflatten(paths, out)
 
 
@@ -125,23 +176,32 @@ class CheckpointManager:
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._barrier = False
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
              blocking: bool = True):
         """Save ``tree`` as step ``step``.  The host snapshot is taken
         here, before any thread starts, so later steps may change or
         replace the tensors; ``blocking=False`` writes it on a thread
-        (``wait`` joins it and raises what it raised)."""
+        (``wait`` joins it and raises what it raised).  A tree on a mesh
+        is gathered here on every rank, rank 0 writes it, and every rank
+        meets at a barrier when the write is done (in ``wait`` if
+        ``blocking=False``)."""
         self.wait()
-        host_tree = tree_map(lambda t: t.detach().to("cpu", copy=True),
-                             tree)
+        names, leaves, _ = _flatten(tree)
+        on_mesh = _on_mesh(leaves)
+        host = [_host_copy(leaf) for leaf in leaves]
+        final = os.path.join(self.ckpt_dir, f"step_{step:09d}")
+        self._barrier = on_mesh
 
         def work():
-            save(self.ckpt_dir, step, host_tree, extra)
-            self._gc()
+            if _writes(on_mesh):
+                _write(self.ckpt_dir, final, step, names, host, extra)
+                self._gc()
 
         if blocking:
             work()
+            self.wait()
             return
 
         def run():
@@ -157,6 +217,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -164,12 +228,14 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         return latest_step(self.ckpt_dir)
 
-    def restore_latest(self, template: Any, device=None):
+    def restore_latest(self, template: Any, shardings: Any = None,
+                       device=None):
         self.wait()
         step = self.latest_step()
         if step is None:
             return None, None
-        return step, restore(self.ckpt_dir, step, template, device)
+        return step, restore(self.ckpt_dir, step, template, shardings,
+                             device)
 
     def _gc(self):
         steps = sorted(

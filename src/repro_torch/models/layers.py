@@ -2,9 +2,16 @@
 
 Every weight is declared once as a :class:`ParamDef` (shape, logical
 sharding tags, init); ``materialize`` turns a tree of them (nested dicts)
-into tensors.  The logical ``spec`` tags are kept so that a tree of defs
-equals the reference's; the sharding helpers that read them belong to the
-launch slice.
+into tensors.  The logical ``spec`` tags ('model': the tensor-parallel
+axis; 'fsdp': weights and optimizer state sharded over the data axis for
+big archs; 'dp': batch) are mapped to mesh axes by :func:`resolve_spec`,
+as in the reference, so that the same defs serve a (16, 16) and a
+(2, 16, 16) mesh.  A spec is a tuple with one entry per tensor dimension:
+None, an axis name, or a tuple of axis names — what the reference's
+``PartitionSpec`` holds, canonicalized as it canonicalizes (a 1-tuple is
+its name, an empty tuple None).  :func:`spec_placements` turns one into
+DTensor placements on a ``DeviceMesh``.  ``abstract`` (sharded shapes
+for the dry run) waits for the dry-run slice.
 
 ``materialize`` draws from a ``torch.Generator`` and cannot reproduce
 ``jax.random``'s bits: parity with the reference comes from carrying its
@@ -15,7 +22,8 @@ Activations are bf16 and norms compute in f32, as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+import math
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +31,8 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 
-__all__ = ["ParamDef", "materialize", "stack_defs", "tree_map", "rmsnorm",
+__all__ = ["ParamDef", "materialize", "stack_defs", "tree_map", "pspec_tree",
+           "resolve_spec", "fit_spec_to_shape", "spec_placements", "rmsnorm",
            "layernorm", "swiglu", "gelu_mlp", "rope", "dtype_of"]
 
 
@@ -41,6 +50,97 @@ class ParamDef:
 
 def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+Spec = Tuple[Any, ...]
+
+
+def _canonical(entry):
+    """A spec entry as ``PartitionSpec`` stores it."""
+    if isinstance(entry, tuple):
+        if not entry:
+            return None
+        return entry[0] if len(entry) == 1 else entry
+    return entry
+
+
+def resolve_spec(tags: Sequence[Optional[str]], *, use_fsdp: bool,
+                 dp_axes: Tuple[str, ...], use_tp: bool = True,
+                 fsdp_axes: Optional[Tuple[str, ...]] = None) -> Spec:
+    """The mesh axes of each dimension for the logical ``tags``."""
+    if fsdp_axes is None:
+        fsdp_axes = ("data",) if use_fsdp else ()
+    axes = []
+    for t in tags:
+        if t is None:
+            axes.append(None)
+        elif t == "model":
+            axes.append("model" if use_tp else None)
+        elif t == "fsdp":
+            axes.append(tuple(fsdp_axes))
+        elif t == "dp":
+            axes.append(tuple(dp_axes))
+        else:
+            raise ValueError(f"unknown sharding tag {t!r}")
+    return tuple(_canonical(a) for a in axes)
+
+
+def fit_spec_to_shape(shape, spec: Spec, mesh) -> Spec:
+    """Drop sharding axes that do not evenly divide a dimension.
+
+    Small dims (e.g. global_batch=1 in long_500k) fall back to
+    replication on the offending axes.  Axis tuples are trimmed from the
+    right so ('pod', 'data') degrades to ('pod',) before giving up
+    entirely.  ``mesh`` is a ``DeviceMesh`` (its ``mesh_dim_names`` and
+    ``shape``)."""
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out = []
+    for dim, entry in zip(shape, tuple(spec) + (None,) * len(shape)):
+        if entry is None:
+            out.append(None)
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        while axes:
+            if dim % math.prod(sizes[a] for a in axes) == 0:
+                break
+            axes = axes[:-1]
+        out.append(_canonical(tuple(axes)))
+    return tuple(out)
+
+
+def spec_placements(spec: Spec, mesh) -> tuple:
+    """DTensor placements on ``mesh`` for ``spec``: for each mesh
+    dimension ``Shard(d)`` if the spec names that axis at tensor
+    dimension ``d``, else ``Replicate()``.  A dimension named over several
+    axes is split over them in mesh order, the first axis major — the
+    row-major layout ``NamedSharding`` gives ``('pod', 'data')``; axes
+    listed out of mesh order, or named twice, raise."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    placements = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry!r} lists axes out of the "
+                             f"mesh's order {names}")
+        for m in dims:
+            if not placements[m].is_replicate():
+                raise ValueError(f"mesh axis {names[m]!r} named twice in "
+                                 f"{spec!r}")
+            placements[m] = Shard(d)
+    return tuple(placements)
+
+
+def pspec_tree(defs, *, use_fsdp: bool = False,
+               dp_axes: Tuple[str, ...] = ("data",),
+               use_tp: bool = True) -> Any:
+    """The spec of every ``ParamDef`` in ``defs``."""
+    return tree_map(
+        lambda d: resolve_spec(d.spec, use_fsdp=use_fsdp, dp_axes=dp_axes,
+                               use_tp=use_tp), defs)
 
 
 def materialize(defs, generator: torch.Generator, dtype: torch.dtype,

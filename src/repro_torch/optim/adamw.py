@@ -16,7 +16,8 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "adamw_apply",
+           "global_norm"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,7 +40,9 @@ def global_norm(tree) -> torch.Tensor:
 def adamw_init(params, cfg: AdamWConfig):
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
         cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    # zeros_like: a DTensor parameter's moments keep its placements
+    zeros = lambda p: torch.zeros_like(p, dtype=dt,
+                                       memory_format=torch.contiguous_format)
     leaf = tree_leaves(params)[0]
     return {"mu": tree_map(zeros, params), "nu": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
@@ -52,8 +55,18 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     Gradients are clipped to ``clip_norm`` by their global norm;
     ``lr_scale`` (a float or a 0-d f32 tensor) scales ``cfg.lr``."""
     with torch.no_grad():
-        count = state["count"] + 1
         gnorm = global_norm(grads)
+    return adamw_apply(grads, state, params, cfg, gnorm, lr_scale)
+
+
+def adamw_apply(grads, state, params, cfg: AdamWConfig, gnorm,
+                lr_scale=1.0):
+    """:func:`adamw_update` given the global norm ``gnorm`` of the whole
+    gradient tree: the update is elementwise, so a mesh step runs it on
+    each rank's shards of ``grads``, ``state`` and ``params`` with the
+    norm of the full gradients."""
+    with torch.no_grad():
+        count = state["count"] + 1
         scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
         b1c = 1.0 - torch.pow(cfg.b1, count.float())
         b2c = 1.0 - torch.pow(cfg.b2, count.float())

@@ -24,7 +24,8 @@ importable before the kernel stack.
 """
 from __future__ import annotations
 
-__all__ = ["compile_stats", "launch_counts", "no_new_compiles"]
+__all__ = ["compile_stats", "engine_cache_sizes", "launch_counts",
+           "no_new_compiles"]
 
 
 def compile_stats() -> dict:
@@ -37,6 +38,10 @@ def compile_stats() -> dict:
             "tiled": sum(1 for v in used if v[0] == "tiled"),
             "sparse": sum(1 for v in used if v[0] == "sparse"),
             "per-step": sum(1 for v in used if v[0] == "per-step")}
+
+
+# The reference's original (pre-promotion) name, kept as an alias.
+engine_cache_sizes = compile_stats
 
 
 def launch_counts() -> dict:

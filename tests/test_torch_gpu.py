@@ -55,7 +55,10 @@ architecture at ``.reduced()`` on the card as on the CPU (phase 12), and
 trains them so (phase 13: the loss, its gradients and one AdamW update
 at the CPU training tests' bars); a checkpoint written on the CPU
 restores on the card bit for bit, and the synthetic stream gives the
-same tokens on both.
+same tokens on both.  On a one-rank NCCL group (phase 14) the mesh step
+equals the plain step bit for bit and a save from the mesh restores
+through ``remesh`` bit for bit; ``compress`` and ``ef_roundtrip`` on the
+card equal the CPU's bit for bit.
 """
 import importlib.util
 from pathlib import Path
@@ -686,3 +689,71 @@ def test_synthetic_batches_equal_on_card_and_cpu(cuda):
             assert torch.equal(got[k].cpu(), want[k])
         np.testing.assert_array_equal(want["tokens"].numpy(),
                                       data.batch_numpy(step)["tokens"])
+
+
+# Phase 14: the distributed training path on a one-rank NCCL mesh.
+def test_mesh_step_on_one_rank_nccl_equals_plain_step(cuda):
+    """A (1, 1) mesh on a one-rank NCCL group: ``init_train_state`` on the
+    mesh, three mesh steps against three plain steps from the same
+    seed and batches, the loss and every leaf bit for bit; a save from
+    the mesh restored through ``remesh`` bit for bit."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.ft import remesh
+    from repro_torch.launch import (init_train_state, make_train_step,
+                                    state_shardings)
+    cfg = get_config("smollm-135m").reduced()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = remesh([0], model_size=1)
+        p_m, o_m = init_train_state(
+            cfg, mesh, torch.Generator(device=cuda).manual_seed(0))
+        p, o = init_train_state(
+            cfg, None, torch.Generator(device=cuda).manual_seed(0))
+        step = make_train_step(cfg)
+        data = SyntheticPipeline(DataConfig(cfg.vocab_size, 64, 4, seed=3))
+        for n in range(3):
+            batch = data.batch(n)
+            p_m, o_m, mm = step(p_m, o_m, batch, n)
+            p, o, m = step(p, o, batch, n)
+            assert chip_smoke.bit_equal(mm["loss"], m["loss"]), n
+            assert mm["all_reduces"] == len(tree_leaves(p)) + 1
+            diff = chip_smoke.mesh_state_bits({"p": p_m, "o": o_m},
+                                              {"p": p, "o": o})
+            assert not diff, (n, diff)
+        with tempfile.TemporaryDirectory() as d:
+            mgr = CheckpointManager(d)
+            mgr.save(3, {"params": p_m, "opt": o_m})
+            n, got = mgr.restore_latest(
+                {"params": p, "opt": o},
+                shardings=state_shardings(cfg, remesh([0], model_size=1)))
+        assert n == 3
+        assert not chip_smoke.mesh_state_bits(got, {"params": p, "opt": o})
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compression_on_the_card_equals_the_cpu(cuda):
+    """``compress`` and ``ef_roundtrip`` on the card bit for bit with the
+    CPU over ten decades of scale, ties of the int8 grid included."""
+    from repro_torch.optim.compression import compress, ef_roundtrip
+    rng = np.random.default_rng(0)
+    for scale in (1e-6, 1e-3, 1.0, 1e4):
+        g = torch.tensor(rng.normal(0, scale, (64, 576)),
+                         dtype=torch.float32)
+        g[0, :4] = torch.tensor([127.0, 0.5, 1.5, -2.5]) * scale
+        e = torch.tensor(rng.normal(0, scale / 100, (64, 576)),
+                         dtype=torch.float32)
+        q, s = compress(g.to(cuda))
+        q_c, s_c = compress(g)
+        assert torch.equal(q.cpu(), q_c)
+        assert chip_smoke.bit_equal(s.cpu(), s_c)
+        for a, b in zip(ef_roundtrip(g.to(cuda), e.to(cuda)),
+                        ef_roundtrip(g, e)):
+            assert chip_smoke.bit_equal(a.cpu(), b)

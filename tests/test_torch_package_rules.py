@@ -52,8 +52,22 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.optim import adamw\n"
         "from repro_torch.data import pipeline\n"
         "from repro_torch.checkpoint import manager\n"
-        "from repro_torch.launch import train\n"
+        "from repro_torch.launch import train, mesh\n"
+        "from repro_torch.launch import (make_production_mesh, "
+        "make_mesh_from_devices, dp_axes_of)\n"
+        "from repro_torch.ft import elastic, HealthTracker, plan_mesh, "
+        "remesh\n"
+        "import repro_torch.sched\n"
+        "from repro_torch.sched import pipeline, PipelinePlan, plan, "
+        "pipeline_apply\n"
+        "from repro_torch.optim.compression import compress, decompress, "
+        "init_error_state, ef_roundtrip, compressed_psum\n"
+        "from repro_torch.telemetry import engine_cache_sizes\n"
+        "from repro_torch.models.layers import resolve_spec, "
+        "fit_spec_to_shape, pspec_tree, spec_placements\n"
         "import repro_torch._compat\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') and "
         "sys.modules[m] is not None for m in sys.modules)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -279,7 +293,7 @@ def test_train_entry_points_without_device_raise_when_no_card(
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         init_train_state(cfg, object(), torch.Generator(), device="cpu")
     params, opt_state = init_train_state(
         cfg, None, torch.Generator().manual_seed(0), device="cpu")
@@ -362,3 +376,24 @@ def test_perstep_wrapper_never_takes_the_plain_version(monkeypatch):
                            num_records=1, record_every=1, record_guard=True,
                            guard_lo=-1.0, guard_hi=1.0, guard_stop=0)
     assert not called
+
+
+def test_mesh_entry_points_without_device_type_raise_when_no_card(
+        monkeypatch):
+    """The mesh builders take the card unless given ``device_type="cpu"``:
+    with no card they raise before touching ``torch.distributed``."""
+    from repro_torch.ft import remesh
+    from repro_torch.launch import make_mesh_from_devices, make_production_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = [
+        lambda: make_production_mesh(),
+        lambda: make_production_mesh(multi_pod=True),
+        lambda: make_mesh_from_devices([0], (1,), ("data",)),
+        lambda: make_mesh_from_devices([0], (1, 1), ("data", "model"),
+                                       device_type="cuda"),
+        lambda: remesh([0, 1], model_size=1),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not torch.distributed.is_initialized()
