@@ -220,20 +220,20 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               vocab 49,152, tied head, f32 parameters) on seeded random
               weights, AdamW(lr 3e-3, weight decay 0.01), the example's
               step (``value_and_grad`` of ``train_loss``, then
-              ``adamw_update``), 100 steps of 8 × 256 tokens from
+              ``adamw_update``), 60 steps of 8 × 256 tokens from
               ``SyntheticPipeline(DataConfig(V, 256, 8, seed=0))``, an
               async ``CheckpointManager(keep=2)`` save of step 50 under
               ``build/``, restored into a fresh template: every leaf bit
               for bit, and the step-50 loss recomputed forward-only from
               it equal to the uninterrupted run's bit for bit.  The
-              step's median CUDA-event ms over steps 10–99, tokens/s,
+              step's median CUDA-event ms over steps 10–59, tokens/s,
               peak memory, the loss every 10 steps, 6·N·D per step over
               the step time against the dense bf16 peak, and
               ``torch.profiler`` over three more steps (device busy, idle
               share, device operations per step); every loss finite, the
               last 10 losses' mean below the first 10's.  (b) mamba2-370m
               at full width and depth (48 layers, d 1,024, state 128,
-              chunk 256), 4 × 256, 10 steps: the SSD scan's backward; as
+              chunk 256), 4 × 256, 5 steps: the SSD scan's backward; as
               (a) without the checkpoint.  (c) every architecture at
               ``.reduced()``: ``train_loss`` and its gradients on the card
               against the CPU from the same weights and batch (loss within
@@ -265,6 +265,32 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               d 576, bit for bit with the chain, and ``plan``'s makespan
               and bubble for ring(4).  The group is destroyed and the
               checkpoints removed.
+15. launch  — the launch analysis (``launch.hloanalysis``,
+              ``launch.memmodel``, ``launch.dryrun``; no kernel): (a) one
+              real smollm-135m ``make_train_step`` step at phase 13's shape
+              (8 × 256, phase 13's state at step 0 and its first batch)
+              under the FLOP and bytes counters (``StepCounter``), whose
+              FLOP count must equal the fake-tensor trace of the same step
+              (``abstract_train_args`` with no mesh, fake CUDA tensors)
+              exactly; the roofline terms (compute from the counted FLOPs
+              over 989 TFLOP/s, memory per op and fused — memmodel at
+              chips=1 — over 3.35 TB/s, collective 0) against phase 13's
+              measured median step (the roofline fraction),
+              ``MemTracker``'s predicted peak against phase 13's
+              ``max_memory_allocated``, and the decode bytes over 3.35
+              TB/s against phase 12's decode step (memmodel at chips=1,
+              whose cache term is over the production mesh's model axis
+              of 16, and one card's: the whole K/V cache); no step is
+              timed again.  (b) ``dryrun.run_cell`` on a fake world of
+              512 ranks with fake CUDA tensors: smollm-135m × train_4k
+              (single pod, multi pod, roofline, driven from a thread
+              beside (a)) and mamba2-370m × long_500k (after (a)), each
+              cell's four traces at once in worker processes (their
+              fork server, started before phase 1, is stopped and
+              waited for when the script exits); each cell's terms,
+              dominant term,
+              bytes per device and collectives printed; every cell
+              traced, with FLOPs and collectives and nothing unmatched.
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -1977,6 +2003,16 @@ def run_sparse_fig18(dev, tiled, k=22, b=8, steps=2_000, rec=100):
     return row
 
 
+def traced_triage_s(trace) -> float:
+    """The seconds a campaign's run spent in triage, from its own flight
+    recorder: from the end of the last record before the first
+    ``chaos_draw`` event (the batched run's end) to that event (triage
+    runs in between, then the draws' events are written)."""
+    first = min(ev.t for ev in trace.by_kind("chaos_draw"))
+    ends = [ev.t + (ev.dur or 0.0) for ev in trace.events if ev.t < first]
+    return first - max(ends)
+
+
 def run_chaos(dev, draws=1024):
     """Phase 9: two chaos campaigns on the sparse lane (see the module
     docstring)."""
@@ -1989,7 +2025,7 @@ def run_chaos(dev, draws=1024):
     from repro_torch.scenarios import (ChaosCampaign, DriftRampSampler,
                                        FreqStepSampler, LatencyStepSampler,
                                        LinkDropSampler, edges_between,
-                                       run_scenario, runner, triage_result)
+                                       run_scenario, runner)
     from repro_torch.telemetry import Telemetry
     topo = torus3d(8)
     links = make_links(topo, cable_m=2.0)
@@ -2024,10 +2060,11 @@ def run_chaos(dev, draws=1024):
     assert launches >= 1 and result.result.engine == "sparse"
     assert np.isfinite(result.result.freq_ppm).all()
     # Where the wall goes: the engine calls (the trace's chunk spans: the
-    # launches, the guard's trip read and the record copies), triage (run
-    # again, timed), and the rest (segment prep, rotations, the build).
+    # launches, the guard's trip read and the record copies), triage (read
+    # off the same trace), and the rest (segment prep, rotations, the
+    # build).
     chunk_s = sum(ev.dur for ev in result.result.trace.by_kind("chunk"))
-    _, triage_s = timed(lambda: triage_result(result.result, depth=32))
+    triage_s = traced_triage_s(result.result.trace)
     held = hold_sparse_calls(calls)
     del calls
     shrunk = result.shrink()
@@ -3238,13 +3275,13 @@ def run_train(dev, smi):
     assert bounded, cluster
     out = dict(cluster=cluster)
     out["smollm"] = train_full_width(
-        "smollm-135m", dev, smi, b=8, s=256, steps=100, time_from=10,
+        "smollm-135m", dev, smi, b=8, s=256, steps=60, time_from=10,
         ckpt_dir=ROOT / "build" / "phase13_ckpt", ckpt_step=50)
     sm = out["smollm"]
     assert sm["loss_last10_mean"] < sm["loss_first10_mean"], sm
     # (b) mamba2-370m: the SSD scan's backward at full width and depth
     out["mamba2"] = train_full_width("mamba2-370m", dev, smi, b=4, s=256,
-                                     steps=10, time_from=1)
+                                     steps=5, time_from=1)
     # (c) every architecture, reduced: the card against the CPU
     rows = [train_card_vs_cpu(name, dev) for name in ARCH_NAMES]
     emit(dict(phase="train", part="card_vs_cpu", nvidia_smi=smi,
@@ -3479,6 +3516,191 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
     return row
 
 
+def launch_step_analysis(dev, smi, serve_row, train_row, b=8, s=256):
+    """Phase 15 (a): one real smollm-135m train step at phase 13's shape
+    on the card under the FLOP and bytes counters, against the
+    fake-tensor trace of the same step (``MemTracker``'s predicted peak
+    too); the roofline terms against phase 13's measured step, the
+    predicted peak against phase 13's, memmodel's decode bytes against
+    phase 12's decode step.  No step is timed here."""
+    import dataclasses
+    import math
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import (abstract_train_args, make_train_step,
+                                    dryrun)
+    from repro_torch.launch.hloanalysis import StepCounter
+    from repro_torch.launch.memmodel import analytic_hbm_bytes
+    from repro_torch.models import ModelZoo, materialize
+    from repro_torch.optim import AdamWConfig, adamw_init
+    t_start = time.perf_counter()
+    name = "smollm-135m"
+    cfg = get_config(name)
+    zoo = ModelZoo(cfg)
+    opt = AdamWConfig(lr=3e-3, weight_decay=0.01)
+    step_fn = make_train_step(cfg, opt)
+    shape = ShapeSpec("train", "train", s, b)
+
+    # the real step, phase 13's state at step 0 and its first batch
+    params = materialize(zoo.param_defs(),
+                         torch.Generator(device=dev).manual_seed(0),
+                         torch.float32, device=dev)
+    opt_state = adamw_init(params, opt)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=0)).batch(
+        0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    with StepCounter() as real:
+        step_fn(params, opt_state, batch, 0)
+    torch.cuda.synchronize()
+    real_s = time.perf_counter() - t0
+    del params, opt_state, batch
+
+    # the same step traced on fake tensors of the card
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        args = abstract_train_args(cfg, shape, None, ("data",), device=dev)
+        tracker = MemTracker()
+        tracker.track_external(*[t for t in tree_leaves(args)
+                                 if isinstance(t, torch.Tensor)])
+        with tracker, StepCounter() as fake:
+            step_fn(*args)
+    fake_s = time.perf_counter() - t0
+    predicted_peak = sum(v["Total"] for v in
+                         tracker.get_tracker_snapshot("peak").values())
+    rc, fc = real.cost_analysis(), fake.cost_analysis()
+
+    # the roofline terms of the real step on one card
+    one_card = dataclasses.replace(cfg, sharding_profile="dp")
+    fused = analytic_hbm_bytes(one_card, shape, chips=1)
+    terms = {"compute_s": rc["flops"] / dryrun.PEAK_FLOPS,
+             "memory_s": rc["bytes accessed"] / dryrun.HBM_BW,
+             "memory_fused_s": fused / dryrun.HBM_BW,
+             "collective_s": 0.0}
+    bound_s = max(terms["compute_s"], terms["memory_fused_s"])
+    step_s = train_row["step_ms_median"] / 1e3
+    prompt = serve_row["prompt"]
+    decode_shape = ShapeSpec("decode", "decode", prompt, serve_row["batch"])
+    # memmodel at chips=1 keeps the production mesh's model axis: its
+    # cache term is the K/V cache over 16; one card streams all of it
+    decode_bytes = analytic_hbm_bytes(one_card, decode_shape, chips=1)
+    kv_size = {"bfloat16": 2, "float8_e4m3fn": 1}[cfg.kv_cache_dtype]
+    cache_bytes = kv_size * sum(math.prod(d.shape) for d in
+                                tree_leaves(zoo.cache_defs(decode_shape)))
+    one_card_decode_bytes = decode_bytes + cache_bytes * (1 - 1 / 16)
+    measured_peak = train_row["peak_memory_bytes"]
+    row = dict(
+        phase="launch", part="step", arch=name, nvidia_smi=smi, batch=b,
+        seq=s, real_flops=rc["flops"], fake_flops=fc["flops"],
+        flops_equal=rc["flops"] == fc["flops"],
+        real_bytes_accessed=rc["bytes accessed"],
+        fake_bytes_accessed=fc["bytes accessed"],
+        real_collectives=real.collective_stats()["total"]["count"],
+        model_flops=zoo.model_flops(shape),
+        counted_over_model_flops=rc["flops"] / zoo.model_flops(shape),
+        init_s=init_s, real_step_s=real_s, fake_trace_s=fake_s,
+        seconds=time.perf_counter() - t_start,
+        terms=terms, terms_note=(
+            "compute: the counted FLOPs over 989 TFLOP/s (dense bf16, H100 "
+            "SXM data sheet); memory: the counted per-op bytes, and "
+            "memmodel's fused estimate at chips=1 under the dp profile "
+            "(the tp profile leaves no data-parallel chip on one card), "
+            "over 3.35 TB/s; no collective on one card"),
+        measured_step_ms=train_row["step_ms_median"],
+        compute_fraction=terms["compute_s"] / step_s,
+        roofline_fraction=bound_s / step_s,
+        predicted_peak_bytes=predicted_peak,
+        measured_peak_bytes=measured_peak,
+        peak_ratio=predicted_peak / measured_peak,
+        decode_shape=[serve_row["batch"], prompt],
+        mesh_memmodel_decode_bytes=decode_bytes,
+        mesh_memmodel_decode_ms=decode_bytes / dryrun.HBM_BW * 1e3,
+        one_card_cache_bytes=cache_bytes,
+        one_card_decode_bytes=one_card_decode_bytes,
+        one_card_decode_ms=one_card_decode_bytes / dryrun.HBM_BW * 1e3,
+        measured_decode_ms_per_step=serve_row["decode_ms_per_step"],
+        mesh_memmodel_decode_share=decode_bytes / dryrun.HBM_BW * 1e3
+        / serve_row["decode_ms_per_step"],
+        one_card_decode_share=one_card_decode_bytes / dryrun.HBM_BW * 1e3
+        / serve_row["decode_ms_per_step"])
+    emit(row)
+    assert row["flops_equal"], row
+    assert rc["flops"] > 0 and row["real_collectives"] == 0, row
+    assert real.unmatched == fake.unmatched == [], row
+    return row
+
+
+# The dry run's cells of phase 15 (b).  The first runs in a helper thread
+# beside (a), the rest after (a); ``run_cell`` traces a cell's passes at
+# once in worker processes, forked from the server ``main`` started.
+LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"))
+
+
+def run_launch(dev, smi, serve_row, train_row):
+    """Phase 15: the launch analysis (see the module docstring)."""
+    import shutil
+    import threading
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "build" / "dryrun_torch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    done = {}
+
+    def cell(arch, shape):
+        done[arch] = (dryrun.run_cell(arch, shape, str(out_dir)),
+                      time.perf_counter() - t_phase)
+
+    dryrun.open_fake_world(512)
+    try:
+        first = threading.Thread(target=cell, args=LAUNCH_CELLS[0])
+        first.start()
+        step = launch_step_analysis(dev, smi, serve_row, train_row)
+        for args in LAUNCH_CELLS[1:]:
+            cell(*args)
+        first.join(timeout=600)
+        assert not first.is_alive(), "the dry run's first cell hangs"
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cells = []
+    for arch, shape in LAUNCH_CELLS:
+        r, done_s = done[arch]
+        sp = r.get("single_pod", {})
+        mem = sp.get("memory", {})
+        roof = r.get("roofline", {})
+        cells.append(dict(
+            arch=arch, shape=shape, done_after_s=done_s,
+            ok=r.get("ok"), error=r.get("error"),
+            device_type=r.get("device_type"),
+            trace_s={k: r[k]["compile_s"] for k in ("single_pod",
+                                                    "multi_pod") if k in r},
+            terms=roof.get("terms"), dominant=roof.get("dominant"),
+            flops_per_device=roof.get("flops_per_device"),
+            bytes_per_device=mem.get("argument_size_in_bytes", 0)
+            + mem.get("temp_size_in_bytes", 0),
+            exceeds_device_memory=sp.get("exceeds_device_memory"),
+            collectives=sp.get("collectives", {}).get("total", {}).get(
+                "count"),
+            multi_pod_collectives=r.get("multi_pod", {}).get(
+                "collectives", {}).get("total", {}).get("count"),
+            unmatched=sp.get("unmatched_collectives")))
+    row = dict(phase="launch", part="dryrun", nvidia_smi=smi, world=512,
+               cells=cells, seconds=time.perf_counter() - t_phase)
+    emit(row)
+    for c in cells:
+        assert c["ok"] and c["error"] is None, c
+        assert c["device_type"] == dev.type and not c["unmatched"], c
+        assert c["flops_per_device"] > 0 and c["collectives"] > 0, c
+    return dict(step=step, dryrun=row)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no port beside the script ({ROOT / 'src'} "
@@ -3495,9 +3717,13 @@ def main() -> int:
     from repro_torch.core.frame_model import RUN_COUNT
     from repro_torch.kernels import build
     from repro_torch.telemetry import Telemetry
+    from repro_torch.launch import dryrun
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     t_start = time.perf_counter()
+    # phase 15's dry-run workers fork from a server whose imports run
+    # beside the phases before it; it ends when this process exits
+    dryrun.start_worker_server()
 
     # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -3586,17 +3812,22 @@ def main() -> int:
 
     # 12. model serving: smollm-135m and mamba2-370m at full width, every
     # architecture (reduced) on the card against the CPU; no kernel
-    run_models(dev, smi)
+    models = run_models(dev, smi)
 
     # 13. the training path: the example's cluster flow and smollm-135m
-    # for 100 steps with a checkpoint, mamba2-370m, every architecture
+    # for 60 steps with a checkpoint, mamba2-370m, every architecture
     # (reduced) on the card against the CPU; no kernel
-    run_train(dev, smi)
+    train = run_train(dev, smi)
 
     # 14. the distributed training path on a one-rank NCCL mesh: phase
     # 13's checkpoint restored onto the mesh, the mesh step against the
     # plain step, the re-mesh and resume, compression, the pipeline
     run_mesh(dev, smi, ROOT / "build" / "phase13_ckpt")
+
+    # 15. the launch analysis: a real step's FLOPs against its fake trace,
+    # with phases 12 and 13's measurements; the dry run of two cells on a
+    # fake 512-rank world; no kernel
+    run_launch(dev, smi, models["smollm"], train["smollm"])
 
     # The kernels line, the card line, the last line.  Launches: the main
     # paths' counts (phases 3, 4, 6, 7, 8, 9, 10 and 11; the fused, tiled and

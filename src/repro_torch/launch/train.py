@@ -15,20 +15,29 @@ step as explicit collectives, where GSPMD partitions it under
 
 1. every rank gathers the full parameters from their shards;
 2. it takes its slice of the batch — the batch dimension split over the
-   mesh's data axes, with ``fit_spec_to_shape``'s rule where they do
-   not divide — and computes the loss and gradients on it;
-3. the gradients are averaged over the data axes by all-reduce, one leaf
-   at a time in tree order (one all-reduce per data axis);
+   profile's batch axes (``_profile``: the mesh's data axes, and "model"
+   too for the ``dp`` and ``zero3`` profiles), with
+   ``fit_spec_to_shape``'s rule where they do not divide — and computes
+   the loss and gradients on it;
+3. the gradients are averaged over those axes by all-reduce, one leaf
+   at a time in tree order (one all-reduce per axis);
 4. AdamW runs on each rank's shard of every leaf, with the norm of the
    full gradients;
-5. the loss is the mean over the data ranks.
+5. the loss is the mean over those ranks.
 
-The batch is the global batch, the same on every rank.  Ranks along
+A batch leaf is the global batch, the same on every rank, or a DTensor
+(redistributed to that split).  Under the ``tp`` profile, ranks along
 "model" compute the same gradients (tensor-parallel compute is not
-split).  On a one-rank mesh the step equals the plain step bit for bit.
-The reference's abstract argument builders (``abstract_train_args`` /
-``abstract_serve_args``: sharded shapes for the dry runs) wait for the
-dry-run slice.
+split).  ``make_prefill_step`` / ``make_decode_step`` run so too: the
+parameters gathered, each rank's slice of the batch and of the caches
+over the batch axes, the plain zoo call, and the outputs returned as
+DTensors sharded on their batch dimension over those axes (replicated
+where ``fit_spec_to_shape`` drops them, as for ``long_500k``'s batch of
+one).  On a one-rank mesh every step equals the plain step bit for bit.
+
+``abstract_train_args`` / ``abstract_serve_args`` build a step's
+arguments as fake tensors (fake DTensors on a mesh) for the dry run
+(``launch.dryrun``), inside a ``FakeTensorMode``.
 """
 from __future__ import annotations
 
@@ -37,20 +46,23 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch._tree import (tree_flatten_with_path, tree_leaves,
                                tree_map, tree_unflatten)
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.launch.mesh import dp_axes_of
 from repro_torch.models import ModelZoo, materialize
-from repro_torch.models.layers import (dtype_of, fit_spec_to_shape,
-                                       pspec_tree, resolve_spec,
-                                       spec_placements)
+from repro_torch.models.layers import (abstract, dtype_of, fake_dtensor,
+                                       fit_spec_to_shape, pspec_tree,
+                                       resolve_spec, spec_placements)
+from repro_torch.models.transformer import cache_defs
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      adamw_update, global_norm)
 
 __all__ = ["use_fsdp", "value_and_grad", "make_train_step",
-           "make_prefill_step", "make_decode_step", "init_train_state",
-           "state_shardings", "lr_schedule"]
+           "make_prefill_step", "make_decode_step", "abstract_train_args",
+           "abstract_serve_args", "init_train_state", "state_shardings",
+           "lr_schedule"]
 
 FSDP_PARAM_THRESHOLD = 2_000_000_000  # shard weights over data above 2B params
 
@@ -90,11 +102,13 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamWConfig] = None):
     loss_and_grads = value_and_grad(zoo.train_loss)
 
     def train_step(params, opt_state, batch, step):
+        if _is_dtensor(step):
+            step = step.to_local()
         lr_scale = lr_schedule(step) / opt.lr
         mesh = _mesh_of(params)
         if mesh is not None:
-            return _mesh_step(mesh, loss_and_grads, opt, params, opt_state,
-                              batch, step, lr_scale)
+            return _mesh_step(mesh, _batch_axes(cfg, mesh), loss_and_grads,
+                              opt, params, opt_state, batch, step, lr_scale)
         loss, grads = loss_and_grads(params, batch)
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, opt, lr_scale=lr_scale)
@@ -120,6 +134,11 @@ def _mesh_of(params):
     return leaves[0].device_mesh
 
 
+def _batch_axes(cfg: ArchConfig, mesh) -> Tuple[str, ...]:
+    """The mesh axes a step splits its batch over: the profile's."""
+    return _profile(cfg, dp_axes_of(mesh))[0]
+
+
 def _local_shard(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     """This rank's shard of a tensor every rank holds in full (a local
     split, no communication)."""
@@ -129,17 +148,38 @@ def _local_shard(full: torch.Tensor, mesh, placements) -> torch.Tensor:
     return rep.redistribute(mesh, placements).to_local()
 
 
-def _batch_slice(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's slice of a global batch leaf: dimension 0 split over
-    the data axes that divide it."""
-    spec = resolve_spec(("dp",) + (None,) * (x.dim() - 1), use_fsdp=False,
-                        dp_axes=dp_axes_of(mesh))
-    spec = fit_spec_to_shape(tuple(x.shape), spec, mesh)
-    return _local_shard(x, mesh, spec_placements(spec, mesh))
+def _batch_placements(shape, dim: int, axes, mesh) -> tuple:
+    """Dimension ``dim`` of ``shape`` split over the ``axes`` that divide
+    it."""
+    tags = [None] * len(shape)
+    tags[dim] = "dp"
+    spec = resolve_spec(tags, use_fsdp=False, dp_axes=tuple(axes))
+    return spec_placements(fit_spec_to_shape(tuple(shape), spec, mesh), mesh)
 
 
-def _mesh_step(mesh, loss_and_grads, opt, params, opt_state, batch, step,
-               lr_scale):
+def _batch_local(x, dim: int, axes, mesh) -> torch.Tensor:
+    """This rank's slice of ``x`` along its batch dimension ``dim``: a
+    DTensor redistributed there (communication where it is placed
+    otherwise), a plain tensor every rank holds in full split locally."""
+    placements = _batch_placements(x.shape, dim, axes, mesh)
+    if _is_dtensor(x):
+        return x.redistribute(mesh, placements).to_local()
+    return _local_shard(x, mesh, placements)
+
+
+def _batch_global(t: torch.Tensor, dim: int, axes, mesh, full_batch: int):
+    """The DTensor of batch ``full_batch`` whose rank-local slice along
+    ``dim`` is ``t``."""
+    from torch.distributed.tensor import DTensor
+    shape = list(t.shape)
+    shape[dim] = full_batch
+    return DTensor.from_local(t, mesh,
+                              _batch_placements(shape, dim, axes, mesh),
+                              run_check=False)
+
+
+def _mesh_step(mesh, axes, loss_and_grads, opt, params, opt_state, batch,
+               step, lr_scale):
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     local = lambda t: t.to_local() if _is_dtensor(t) else t
@@ -153,15 +193,14 @@ def _mesh_step(mesh, loss_and_grads, opt, params, opt_state, batch, step,
 
     full = tree_map(lambda p: p.full_tensor(), params)
     loss, grads = loss_and_grads(full, tree_map(
-        lambda x: _batch_slice(x, mesh), batch))
-    dp = dp_axes_of(mesh)
-    n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in dp)
+        lambda x: _batch_local(x, 0, axes, mesh), batch))
+    n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
     flat = tree_flatten_with_path(grads)
     reduced, reduces = [], 0
     with torch.no_grad():
         for t in [g for _, g in flat] + [loss]:
             t = t.contiguous()
-            for axis in dp:
+            for axis in axes:
                 dist.all_reduce(t, group=mesh.get_group(axis))
                 reduces += 1
             reduced.append(t.div_(n_dp))
@@ -181,10 +220,39 @@ def _mesh_step(mesh, loss_and_grads, opt, params, opt_state, batch, step,
     return new_p, new_opt, metrics
 
 
+def _cache_batch_dims(cfg: ArchConfig):
+    """The batch dimension of every decode-cache leaf (its "dp" tag)."""
+    return tree_map(lambda d: d.spec.index("dp"), cache_defs(cfg, 1, 1))
+
+
+def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
+    """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: gathered
+    parameters, this rank's slice of the batch and the caches, the
+    outputs as DTensors sharded on their batch dimension."""
+    axes = _batch_axes(cfg, mesh)
+    dims = _cache_batch_dims(cfg)
+    full = tree_map(lambda p: p.full_tensor(), params)
+    b = next(iter(batch.values())).shape[0]
+    local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
+    if caches is None:
+        logits, new_caches = call(full, local_batch)
+    else:
+        logits, new_caches = call(full, tree_map(
+            lambda c, d: _batch_local(c, d, axes, mesh), caches, dims),
+            local_batch)
+    del full
+    return (_batch_global(logits, 0, axes, mesh, b),
+            tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
+                     new_caches, dims))
+
+
 def make_prefill_step(cfg: ArchConfig):
     zoo = ModelZoo(cfg)
 
     def prefill_step(params, batch):
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _mesh_serve(mesh, cfg, zoo.prefill, params, batch)
         return zoo.prefill(params, batch)
 
     return prefill_step
@@ -194,9 +262,89 @@ def make_decode_step(cfg: ArchConfig):
     zoo = ModelZoo(cfg)
 
     def decode_step(params, caches, batch):
+        mesh = _mesh_of(params)
+        if mesh is not None:
+            return _mesh_serve(mesh, cfg, zoo.decode, params, batch, caches)
         return zoo.decode(params, caches, batch)
 
     return decode_step
+
+
+# ------------------------------------------------- abstract argument trees
+
+def _profile(cfg: ArchConfig, dp_axes: Tuple[str, ...]):
+    """(dp_axes, use_tp, fsdp_axes) for the arch's sharding profile.
+
+    'tp'    — baseline: TP over model (+ FSDP over data for big archs).
+    'dp'    — replicate weights; model axis becomes extra batch (small archs).
+    'zero3' — no TP; weights/opt fully sharded over (data, model); batch over
+              every axis (tests the FSDP-vs-TP collective tradeoff).
+    """
+    if cfg.sharding_profile == "dp":
+        return tuple(dp_axes) + ("model",), False, ()
+    if cfg.sharding_profile == "zero3":
+        return tuple(dp_axes) + ("model",), False, ("data", "model")
+    return tuple(dp_axes), True, None
+
+
+def _input_abstract(inp_defs, mesh, dp_axes, device=None):
+    """The inputs as fake tensors, the batch dimension over ``dp_axes``."""
+    return abstract(inp_defs, None, mesh, use_fsdp=False, dp_axes=dp_axes,
+                    device=device)
+
+
+def _scalar(mesh, device):
+    """A fake 0-d int32 (replicated on a mesh)."""
+    if mesh is None:
+        return torch.zeros((), dtype=torch.int32,
+                           device=resolve_device(device))
+    return fake_dtensor((), torch.int32, mesh, ())
+
+
+def _abstract_params(cfg, dtype, mesh, dp_axes, device):
+    dp_axes, use_tp, fsdp_axes = _profile(cfg, dp_axes)
+    return abstract(ModelZoo(cfg).param_defs(), dtype, mesh,
+                    use_fsdp=use_fsdp(cfg), dp_axes=dp_axes, use_tp=use_tp,
+                    fsdp_axes=fsdp_axes, device=device)
+
+
+def abstract_train_args(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                        dp_axes: Tuple[str, ...], device=None):
+    """(params, opt_state, batch, step) as fake tensors, inside an active
+    ``FakeTensorMode``: fake DTensors placed as the reference's
+    ``NamedSharding``s on ``mesh``, or plain fake tensors on ``device``
+    (None: the card) with no mesh."""
+    zoo = ModelZoo(cfg)
+    params = _abstract_params(cfg, dtype_of(cfg.param_dtype), mesh, dp_axes,
+                              device)
+    mom = lambda: _abstract_params(cfg, dtype_of(cfg.opt_moment_dtype), mesh,
+                                   dp_axes, device)
+    opt_state = {"mu": mom(), "nu": mom(), "count": _scalar(mesh, device)}
+    batch = _input_abstract(zoo.input_defs(shape), mesh,
+                            _profile(cfg, dp_axes)[0], device)
+    return params, opt_state, batch, _scalar(mesh, device)
+
+
+def abstract_serve_args(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                        dp_axes: Tuple[str, ...], device=None):
+    """(params, caches, batch) for decode; (params, batch) for prefill;
+    as :func:`abstract_train_args`.  K/V caches in ``kv_cache_dtype``;
+    SSM states are recurrent accumulators and stay bf16."""
+    zoo = ModelZoo(cfg)
+    params = _abstract_params(cfg, dtype_of(cfg.param_dtype), mesh, dp_axes,
+                              device)
+    dp_axes, use_tp, _ = _profile(cfg, dp_axes)
+    batch = _input_abstract(zoo.input_defs(shape), mesh, dp_axes, device)
+    if shape.kind == "prefill":
+        return params, batch
+    kv_dt = {"bfloat16": torch.bfloat16,
+             "float8_e4m3fn": torch.float8_e4m3fn}[cfg.kv_cache_dtype]
+    caches = {
+        k: abstract(v, kv_dt if k in ("kv", "shared_kv", "cross_kv")
+                    else torch.bfloat16, mesh, use_fsdp=False,
+                    dp_axes=dp_axes, use_tp=use_tp, device=device)
+        for k, v in zoo.cache_defs(shape).items()}
+    return params, caches, batch
 
 
 # ------------------------------------------------- concrete initialization

@@ -1,7 +1,8 @@
 """The model stack of the port (``repro.models``).
 
 layers       ``ParamDef`` trees, ``materialize`` (a ``torch.Generator``),
-             rmsnorm / layernorm / swiglu / gelu_mlp / rope
+             ``abstract`` (fake tensors for the dry run), the sharding
+             specs, rmsnorm / layernorm / swiglu / gelu_mlp / rope
 attention    GQA attention: full, query-chunked, decode
 mamba2       the Mamba2 SSD block: chunked scan and one-token decode
 moe          GShard-style grouped one-hot MoE (ties to the lower expert)

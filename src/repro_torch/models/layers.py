@@ -10,8 +10,9 @@ as in the reference, so that the same defs serve a (16, 16) and a
 None, an axis name, or a tuple of axis names — what the reference's
 ``PartitionSpec`` holds, canonicalized as it canonicalizes (a 1-tuple is
 its name, an empty tuple None).  :func:`spec_placements` turns one into
-DTensor placements on a ``DeviceMesh``.  ``abstract`` (sharded shapes
-for the dry run) waits for the dry-run slice.
+DTensor placements on a ``DeviceMesh``; :func:`abstract` builds a tree
+of fake tensors (or fake DTensors placed so) for the dry run, which
+allocates nothing.
 
 ``materialize`` draws from a ``torch.Generator`` and cannot reproduce
 ``jax.random``'s bits: parity with the reference comes from carrying its
@@ -31,8 +32,9 @@ import torch.nn.functional as F
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_map
 
-__all__ = ["ParamDef", "materialize", "stack_defs", "tree_map", "pspec_tree",
-           "resolve_spec", "fit_spec_to_shape", "spec_placements", "rmsnorm",
+__all__ = ["ParamDef", "materialize", "abstract", "stack_defs", "tree_map",
+           "pspec_tree", "resolve_spec", "fit_spec_to_shape",
+           "spec_placements", "fake_dtensor", "rmsnorm",
            "layernorm", "swiglu", "gelu_mlp", "rope", "dtype_of"]
 
 
@@ -164,6 +166,59 @@ def materialize(defs, generator: torch.Generator, dtype: torch.dtype,
         return w.to(device=dev, dtype=dtype)
 
     return tree_map(make, defs)
+
+
+def abstract(defs, dtype: Optional[torch.dtype], mesh=None, *,
+             use_fsdp: bool = False, dp_axes: Tuple[str, ...] = ("data",),
+             use_tp: bool = True, fsdp_axes: Optional[Tuple[str, ...]] = None,
+             device=None) -> Any:
+    """Fake tensors of every def's shape in ``defs`` (``ParamDef``s, or
+    any def with ``shape`` and ``spec``; a ``dtype`` of None takes each
+    def's own ``dtype``).  Call it inside an active ``FakeTensorMode``:
+    nothing is allocated.
+
+    With no ``mesh``, plain fake tensors on ``device`` (None means the
+    CUDA card).  On a ``DeviceMesh``, fake DTensors on the mesh's device
+    type, placed by ``resolve_spec`` -> ``fit_spec_to_shape`` ->
+    ``spec_placements``: each holds this rank's local shard, and
+    ``fit_spec_to_shape`` keeps only the axes that divide."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if not isinstance(torch.empty(0), FakeTensor):
+        raise RuntimeError("abstract() builds fake tensors: call it inside "
+                           "an active FakeTensorMode")
+    dev = (torch.device(mesh.device_type) if mesh is not None
+           else resolve_device(device))
+
+    def make(d):
+        dt = d.dtype if dtype is None else dtype
+        if mesh is None:
+            return torch.empty(d.shape, dtype=dt, device=dev)
+        spec = resolve_spec(d.spec, use_fsdp=use_fsdp, dp_axes=dp_axes,
+                            use_tp=use_tp, fsdp_axes=fsdp_axes)
+        return fake_dtensor(d.shape, dt, mesh,
+                            fit_spec_to_shape(d.shape, spec, mesh))
+
+    return tree_map(make, defs)
+
+
+def fake_dtensor(shape, dtype: torch.dtype, mesh, spec: Spec):
+    """A DTensor of global ``shape`` on ``mesh`` placed by ``spec`` (whose
+    axes divide their dimensions), holding an empty local shard of this
+    rank's size: inside ``FakeTensorMode`` a fake one.  No
+    communication."""
+    from torch.distributed.tensor import DTensor
+    placements = spec_placements(spec, mesh)
+    local = list(shape)
+    for m, p in enumerate(placements):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(m)
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device=mesh.device_type), mesh,
+        placements, run_check=False, shape=torch.Size(shape),
+        stride=tuple(stride))
 
 
 def stack_defs(defs, n: int) -> Any:

@@ -58,7 +58,10 @@ restores on the card bit for bit, and the synthetic stream gives the
 same tokens on both.  On a one-rank NCCL group (phase 14) the mesh step
 equals the plain step bit for bit and a save from the mesh restores
 through ``remesh`` bit for bit; ``compress`` and ``ef_roundtrip`` on the
-card equal the CPU's bit for bit.
+card equal the CPU's bit for bit.  The launch analysis (phase 15): a
+reduced train step on the card counts the FLOPs of its fake-tensor trace
+exactly, and a reduced cell of the dry run on a fake 8-rank world gives
+the same dict on fake CUDA tensors as on fake CPU tensors.
 """
 import importlib.util
 from pathlib import Path
@@ -757,3 +760,70 @@ def test_compression_on_the_card_equals_the_cpu(cuda):
         for a, b in zip(ef_roundtrip(g.to(cuda), e.to(cuda)),
                         ef_roundtrip(g, e)):
             assert chip_smoke.bit_equal(a.cpu(), b)
+
+
+# Phase 15: the launch analysis.
+@pytest.mark.parametrize("name", ["smollm-135m", "mamba2-370m",
+                                  "qwen2-moe-a2.7b"])
+def test_real_step_flops_equal_the_fake_trace(cuda, name):
+    """A reduced train step on the card counts the FLOPs of its
+    fake-tensor trace, exactly."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import abstract_train_args, make_train_step
+    from repro_torch.launch.hloanalysis import StepCounter
+    from repro_torch.launch.train import init_train_state
+    cfg = get_config(name).reduced()
+    step = make_train_step(cfg)
+    params, opt = init_train_state(
+        cfg, None, torch.Generator(device=cuda).manual_seed(0))
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, 64, 2)).batch(0)
+    with StepCounter() as real:
+        step(params, opt, batch, 0)
+    with FakeTensorMode():
+        args = abstract_train_args(cfg, ShapeSpec("t", "train", 64, 2), None,
+                                   ("data",))
+        with StepCounter() as fake:
+            step(*args)
+    assert real.cost_analysis()["flops"] == fake.cost_analysis()["flops"] > 0
+
+
+def test_fake_cuda_dry_run_equals_the_cpu_dry_run(cuda):
+    """One reduced cell traced on a fake 8-rank (2, 2, 2) world with fake
+    CUDA tensors gives the dict it gives with fake CPU tensors, but for
+    the trace's seconds and the temporaries' bytes: ``MemTracker`` rounds
+    every CUDA storage up to the caching allocator's 512-byte blocks, so
+    the CUDA peak is a little larger (by 0.3 % at this reduced size on an
+    H100)."""
+    import json
+    from torch_gloo import run_fake
+    proc = run_fake("""
+        import json
+        from repro_torch.configs import get_config
+        from repro_torch.configs.base import ShapeSpec
+        from repro_torch.launch import dryrun, make_mesh_from_devices
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=8)
+        cfg = get_config("internlm2-1.8b").reduced()
+        out = {}
+        for dev in ("cuda", "cpu"):
+            mesh = make_mesh_from_devices(range(8), (2, 2, 2),
+                                          ("pod", "data", "model"),
+                                          device_type=dev)
+            for kind in ("train", "decode"):
+                r = dryrun._trace(cfg, ShapeSpec(kind, kind, 64, 8), mesh)
+                r.pop("compile_s")
+                out[f"{dev}/{kind}"] = r
+        print(json.dumps(out))
+    """, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout)
+    for kind in ("train", "decode"):
+        on_card, on_cpu = out[f"cuda/{kind}"], out[f"cpu/{kind}"]
+        temp = [r["memory"].pop("temp_size_in_bytes")
+                for r in (on_card, on_cpu)]
+        assert on_card == on_cpu, kind
+        assert on_card["flops"] > 0
+        assert 0 <= temp[0] - temp[1] <= 0.01 * temp[1], (kind, temp)

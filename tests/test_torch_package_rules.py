@@ -52,7 +52,11 @@ def test_imports_with_jax_and_repro_blocked():
         "from repro_torch.optim import adamw\n"
         "from repro_torch.data import pipeline\n"
         "from repro_torch.checkpoint import manager\n"
-        "from repro_torch.launch import train, mesh\n"
+        "from repro_torch.launch import train, mesh, memmodel, "
+        "hloanalysis, dryrun, roofline\n"
+        "from repro_torch.launch import abstract_train_args, "
+        "abstract_serve_args\n"
+        "from repro_torch.models.layers import abstract, fake_dtensor\n"
         "from repro_torch.launch import (make_production_mesh, "
         "make_mesh_from_devices, dp_axes_of)\n"
         "from repro_torch.ft import elastic, HealthTracker, plan_mesh, "
@@ -302,6 +306,33 @@ def test_train_entry_points_without_device_raise_when_no_card(
     assert metrics["loss"].device.type == "cpu" and metrics["step"] == 1
     assert restore(str(tmp_path), 1, {"w": torch.ones(2)},
                    device="cpu")["w"].device.type == "cpu"
+
+
+def test_abstract_args_take_the_card_and_need_fake_mode(monkeypatch):
+    """The dry run's abstract arguments are fake tensors: built outside a
+    ``FakeTensorMode`` they raise; with no mesh and no ``device`` they
+    are on the card, and raise with no card."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import abstract_serve_args, abstract_train_args
+    from repro_torch.models import ModelZoo
+    from repro_torch.models.layers import abstract
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("smollm-135m").reduced()
+    shape = ShapeSpec("t", "train", 64, 2)
+    with pytest.raises(RuntimeError, match="FakeTensorMode"):
+        abstract(ModelZoo(cfg).param_defs(), torch.float32, device="cpu")
+    with FakeTensorMode():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            abstract_train_args(cfg, shape, None, ("data",))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            abstract_serve_args(cfg, ShapeSpec("d", "decode", 64, 2), None,
+                                ("data",))
+        params, opt, batch, step = abstract_train_args(
+            cfg, shape, None, ("data",), device="cpu")
+    assert params["embed"].device.type == "cpu"
+    assert batch["tokens"].dtype == torch.int32
 
 
 def test_cuda_tensor_never_takes_the_plain_version(monkeypatch):
