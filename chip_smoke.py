@@ -256,7 +256,17 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               the same state and batches (8 × 256, steps 50–54), the loss
               and every parameter and moment bit for bit after each; the
               step's CUDA-event ms of both, peak memory and all-reduces per
-              step; a save from the mesh, ``plan_mesh(1, 1)``, a restore
+              step.  Under the ``tp`` profile this mesh step is the split
+              step (``models.parallel``: each block on its "model" group
+              of one rank, which issues no collective; the tied head
+              row-parallel), and so is
+              ``make_prefill_step`` on the same state (8 × 256 tokens):
+              its logits and K/V caches bit for bit with the plain
+              prefill, the CUDA-event ms of both; reduced llama3-8b
+              (untied: the vocabulary-parallel loss and the gathered
+              logits) takes 3 split steps and a split prefill, bit for
+              bit with the plain ones.  Then a save from the mesh,
+              ``plan_mesh(1, 1)``, a restore
               through ``remesh`` and one more step, its loss bit for bit
               with the uninterrupted run's; ``ef_roundtrip`` and
               ``compressed_psum`` over every gradient leaf on the card, bit
@@ -291,6 +301,11 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               dominant term,
               bytes per device and collectives printed; every cell
               traced, with FLOPs and collectives and nothing unmatched.
+              smollm-135m × train_4k's step is the split step: its FLOPs
+              and bytes per device beside the gathered step's
+              (``GATHERED_STEP``: 1.412e14 FLOPs, 23.25 GB, as PERF.md §6
+              records them), and the leaves it keeps gathered
+              (the attention: 9 q heads on 16 ranks).
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -3307,6 +3322,87 @@ def mesh_state_bits(mesh_state, plain_state) -> list:
         if not bit_equal(a.full_tensor(), b)]
 
 
+def split_layout(cfg, mesh, params) -> dict:
+    """What the mesh step splits over "model" (``models.parallel``)."""
+    from repro_torch.launch.train import _tensor_parallel
+    tp, _ = _tensor_parallel(cfg, mesh, params)
+    return None if tp is None else dict(model=tp.size, attn=tp.attn,
+                                        mlp=tp.mlp, embed=tp.embed,
+                                        head=tp.head)
+
+
+def split_prefill_bits(cfg, p_mesh, p_plain, tokens, dev, reps=3) -> dict:
+    """``make_prefill_step`` on a mesh state against ``ModelZoo.prefill``
+    on the plain state: the logits and K/V caches bit for bit, and the
+    CUDA-event ms of both (the median of ``reps`` calls each, in
+    turns)."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch import make_prefill_step
+    from repro_torch.models import ModelZoo
+    split, plain = make_prefill_step(cfg), ModelZoo(cfg).prefill
+    batch = {"tokens": tokens}
+    times = {"split": [], "plain": []}
+
+    def timed_call(fn, params):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with torch.inference_mode():
+            out = fn(params, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    for _ in range(reps):
+        (got_l, got_c), ms = timed_call(split, p_mesh)
+        times["split"].append(ms)
+        (want_l, want_c), ms = timed_call(plain, p_plain)
+        times["plain"].append(ms)
+    diff = [] if bit_equal(got_l.full_tensor(), want_l) else ["logits"]
+    diff += [f"cache{i}" for i, (a, b) in enumerate(zip(
+        tree_leaves(got_c), tree_leaves(want_c)))
+        if not bit_equal(a.full_tensor(), b)]
+    return dict(batch=list(tokens.shape), bits_differ=diff,
+                split_ms=times["split"], plain_ms=times["plain"],
+                split_ms_median=float(np.median(times["split"])),
+                plain_ms_median=float(np.median(times["plain"])))
+
+
+def reduced_split_bits(mesh, dev, steps=3) -> dict:
+    """Reduced llama3-8b (untied: the vocabulary-parallel loss, the
+    logits gathered over the vocabulary) on ``mesh``: ``steps`` split
+    train steps and a split prefill against the plain ones, bit for
+    bit."""
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import init_train_state, make_train_step
+    cfg = get_config("llama3-8b").reduced()
+    p_m, o_m = init_train_state(cfg, mesh,
+                                torch.Generator(device=dev).manual_seed(0))
+    p, o = init_train_state(cfg, None,
+                            torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    data = SyntheticPipeline(DataConfig(cfg.vocab_size, 64, 2, seed=5))
+    step = make_train_step(cfg)
+    diff = []
+    for n in range(steps):
+        batch = data.batch(n, device=dev)
+        p_m, o_m, mm = step(p_m, o_m, batch, n)
+        p, o, m = step(p, o, batch, n)
+        if not (bit_equal(mm["loss"], m["loss"])
+                and bit_equal(mm["grad_norm"], m["grad_norm"])):
+            diff.append(f"step{n}/metrics")
+        diff += [f"step{n}/{i}" for i, (a, b) in enumerate(zip(
+            tree_leaves({"p": p_m, "o": o_m}), tree_leaves({"p": p, "o": o})))
+            if not bit_equal(a.full_tensor(), b)]
+    pre = split_prefill_bits(cfg, p_m, p, batch["tokens"], dev, reps=1)
+    return dict(steps=steps, layout=split_layout(cfg, mesh, p_m),
+                bits_differ=diff + pre["bits_differ"])
+
+
 def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
              s=256, steps=5):
     """Phase 14: the distributed training path on a one-rank mesh (see the
@@ -3374,6 +3470,7 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
         p_m, o_m = state["params"], state["opt"]
         p, o = plain["params"], plain["opt"]
         mesh_ms, plain_ms, mesh_peak, plain_peak, reduces = [], [], [], [], []
+        model_reduces = []
         losses = []
 
         def timed_step(*args):
@@ -3396,6 +3493,7 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
             mesh_peak.append(peak_m)
             plain_peak.append(peak_p)
             reduces.append(mm["all_reduces"])
+            model_reduces.append(mm["model_all_reduces"])
             losses.append(float(m["loss"]))
             diff = mesh_state_bits({"params": p_m, "opt": o_m},
                                    {"params": p, "opt": o})
@@ -3412,7 +3510,22 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                    mesh_peak_memory_bytes=max(mesh_peak),
                    plain_peak_memory_bytes=max(plain_peak),
                    all_reduces_per_step=reduces,
+                   model_all_reduces_per_step=model_reduces,
+                   split_layout=split_layout(cfg, mesh, p_m),
                    steps_bit_identical=steps)
+
+        # 3b. the split prefill on the same state, bit for bit
+        row["prefill"] = split_prefill_bits(cfg, p_m, p, batch["tokens"],
+                                            dev)
+        row["reduced_llama3_8b"] = reduced_split_bits(mesh, dev)
+        emit(dict(phase="mesh", part="split", nvidia_smi=smi,
+                  split_layout=row["split_layout"],
+                  train_step_ms_median=row["mesh_step_ms_median"],
+                  plain_step_ms_median=row["plain_step_ms_median"],
+                  prefill=row["prefill"],
+                  reduced_llama3_8b=row["reduced_llama3_8b"]))
+        for part in (row["prefill"], row["reduced_llama3_8b"]):
+            assert not part["bits_differ"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
         resume_dir = Path(str(ckpt_dir) + "_mesh")
@@ -3641,6 +3754,12 @@ def launch_step_analysis(dev, smi, serve_row, train_row, b=8, s=256):
 # once in worker processes, forked from the server ``main`` started.
 LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"))
 
+# smollm-135m × train_4k as the step counted it when every rank gathered
+# every leaf over "model" (PERF.md §6): FLOPs per device (the roofline's
+# composition) and bytes per device (arguments + temporaries, single pod)
+GATHERED_STEP = {"arch": "smollm-135m", "shape": "train_4k",
+                 "flops_per_device": 1.412e14, "bytes_per_device": 23.25e9}
+
 
 def run_launch(dev, smi, serve_row, train_row):
     """Phase 15: the launch analysis (see the module docstring)."""
@@ -3690,7 +3809,16 @@ def run_launch(dev, smi, serve_row, train_row):
                 "count"),
             multi_pod_collectives=r.get("multi_pod", {}).get(
                 "collectives", {}).get("total", {}).get("count"),
-            unmatched=sp.get("unmatched_collectives")))
+            unmatched=sp.get("unmatched_collectives"),
+            tensor_parallel=r.get("tensor_parallel")))
+        c = cells[-1]
+        if (arch, shape) == (GATHERED_STEP["arch"], GATHERED_STEP["shape"]) \
+                and c["flops_per_device"] is not None:
+            c["gathered_step"] = GATHERED_STEP
+            c["flops_over_gathered"] = (c["flops_per_device"]
+                                        / GATHERED_STEP["flops_per_device"])
+            c["bytes_over_gathered"] = (c["bytes_per_device"]
+                                        / GATHERED_STEP["bytes_per_device"])
     row = dict(phase="launch", part="dryrun", nvidia_smi=smi, world=512,
                cells=cells, seconds=time.perf_counter() - t_phase)
     emit(row)
@@ -3698,6 +3826,8 @@ def run_launch(dev, smi, serve_row, train_row):
         assert c["ok"] and c["error"] is None, c
         assert c["device_type"] == dev.type and not c["unmatched"], c
         assert c["flops_per_device"] > 0 and c["collectives"] > 0, c
+    # the split step does less per device than the gathered one did
+    assert cells[0]["flops_over_gathered"] < 1.0, cells[0]
     return dict(step=step, dryrun=row)
 
 

@@ -19,11 +19,17 @@ cell this:
      trace of the SSD chunk loop (Python) is slow, and the artifacts
      keep the reference's layout.
 
-The step is the port's own (``launch.train``): every rank gathers the
-full parameters, so FLOPs per device do not divide by the 'model' axis
-and a large architecture's gathered step can exceed a card's memory.
-The dry run reports that as it is (``exceeds_device_memory``), and
-skips nothing for it.
+The step is the port's own (``launch.train``).  Under the ``tp``
+profile the dense family's step splits over 'model' as GSPMD partitions
+the reference's (``models.parallel``): a rank holds and computes its
+share of every split leaf, so its FLOPs, bytes, collectives and peak
+are one rank's.  A cell's JSON names the leaves that stay gathered
+(``tensor_parallel.gathered_leaves``: a block whose heads 'model' does
+not divide, the kv projections where ranks share kv heads).  Other
+families and profiles gather every parameter, so their FLOPs per device
+do not divide by 'model', and a large architecture can exceed a card's
+memory: the dry run reports that as it is (``exceeds_device_memory``),
+and skips nothing for it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k \\
@@ -65,9 +71,10 @@ from repro_torch.configs.base import SHAPES, skip_reason
 from repro_torch.launch.hloanalysis import StepCounter
 from repro_torch.launch.mesh import (dp_axes_of, make_mesh_from_devices,
                                      make_production_mesh)
-from repro_torch.launch.train import (abstract_serve_args, abstract_train_args,
-                                      make_decode_step, make_prefill_step,
-                                      make_train_step)
+from repro_torch.launch.train import (_profile, abstract_serve_args,
+                                      abstract_train_args, make_decode_step,
+                                      make_prefill_step, make_train_step)
+from repro_torch.models.parallel import gathered_leaves, tp_layout
 
 __all__ = ["PEAK_FLOPS", "HBM_BW", "COLL_BW", "DEVICE_MEMORY_BYTES",
            "VARIANTS", "run_cell", "start_worker_server", "stop_worker_server",
@@ -219,6 +226,25 @@ def _compose(cfg, r1, r2):
     }
 
 
+def _tensor_parallel_report(cfg, shape, model: int = 16):
+    """What the step splits over the production mesh's 'model' axis of
+    ``model`` ranks: None under a profile that splits no compute; else
+    the layout (``tp_layout``; None for a family that keeps the gathered
+    step) and the "model"-tagged leaves computed gathered, with why.
+    Decode keeps the gathered step."""
+    if not _profile(cfg, ("data",))[1]:
+        return None
+    from repro_torch.models import ModelZoo
+    defs = ModelZoo(cfg).param_defs()
+    decode = shape.kind == "decode"
+    return {"model": model,
+            "layout": None if decode else tp_layout(cfg, model),
+            "gathered_leaves": gathered_leaves(
+                cfg, defs, model,
+                step_gathers="decode keeps the gathered step" if decode
+                else None)}
+
+
 def _trace_pass(cfg, shape, multi_pod: bool):
     return _trace(cfg, shape, _mesh(multi_pod))
 
@@ -342,6 +368,10 @@ def run_cell(arch: str, shape_name: str, out_dir: str,
     result["model_flops_global"] = ModelZoo(cfg).model_flops(shape)
     result["params"] = cfg.param_count()
     result["active_params"] = cfg.active_param_count()
+    result["tensor_parallel"] = _tensor_parallel_report(cfg, shape)
+    for g in (result["tensor_parallel"] or {}).get("gathered_leaves", []):
+        print(f"[dryrun]   gathered over 'model': {g['leaf']} "
+              f"({g['reason']})", flush=True)
 
     passes = {"single_pod": (cfg, False)}
     if do_multi:

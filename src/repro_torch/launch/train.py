@@ -13,27 +13,44 @@ placed by ``pspec_tree``), the same ``train_step`` runs the reference's
 step as explicit collectives, where GSPMD partitions it under
 ``jax.jit``:
 
-1. every rank gathers the full parameters from their shards;
+1. every rank gathers its parameters from their shards: under the
+   ``tp`` profile, for the dense family, each leaf that "model" splits
+   in compute (``models.parallel.leaf_roles``) only over the other axes
+   — the rank keeps its "model" shard — and every other leaf in full;
 2. it takes its slice of the batch — the batch dimension split over the
    profile's batch axes (``_profile``: the mesh's data axes, and "model"
    too for the ``dp`` and ``zero3`` profiles), with
    ``fit_spec_to_shape``'s rule where they do not divide — and computes
-   the loss and gradients on it;
-3. the gradients are averaged over those axes by all-reduce, one leaf
-   at a time in tree order (one all-reduce per axis);
+   the loss and gradients on it, with the "model" group's collectives
+   inside the layers and the loss where the compute is split;
+3. the gradients are averaged over the batch axes by all-reduce, one
+   leaf at a time in tree order (one all-reduce per axis); a leaf each
+   rank used only a slice of (the kv heads its q heads read) is summed
+   over "model" first;
 4. AdamW runs on each rank's shard of every leaf, with the norm of the
-   full gradients;
+   full gradients (the split leaves' squared norms summed over "model"
+   in one all-reduce);
 5. the loss is the mean over those ranks.
 
-A batch leaf is the global batch, the same on every rank, or a DTensor
-(redistributed to that split).  Under the ``tp`` profile, ranks along
-"model" compute the same gradients (tensor-parallel compute is not
-split).  ``make_prefill_step`` / ``make_decode_step`` run so too: the
-parameters gathered, each rank's slice of the batch and of the caches
-over the batch axes, the plain zoo call, and the outputs returned as
-DTensors sharded on their batch dimension over those axes (replicated
-where ``fit_spec_to_shape`` drops them, as for ``long_500k``'s batch of
-one).  On a one-rank mesh every step equals the plain step bit for bit.
+So under ``tp`` ranks along "model" hold and compute their share of the
+split leaves, as GSPMD partitions the reference's step; a block whose
+heads "model" does not divide (smollm-135m's 9 on 16) stays gathered,
+and ``models.parallel.gathered_leaves`` names it.  Other families and
+profiles gather every leaf, and ranks along "model" compute the same
+gradients.  A batch leaf is the global batch, the same on every rank,
+or a DTensor (redistributed to that split).  ``make_prefill_step``
+splits so too, with the logits gathered over the vocabulary and the K/V
+caches over the kv heads; ``make_decode_step`` gathers the parameters.
+Both take each rank's slice of the batch and of the caches over the
+batch axes and return DTensors sharded on their batch dimension over
+those axes (replicated where ``fit_spec_to_shape`` drops them, as for
+``long_500k``'s batch of one).  On a one-rank mesh every step equals the
+plain step bit for bit: the split path's operations on a group of one
+are the plain path's.
+
+The split runs wherever the mesh runs: gloo worlds of CPU processes
+(``tests/test_torch_tp_steps.py``) and NCCL on cards (``chip_smoke.py``
+phase 14, one rank).
 
 ``abstract_train_args`` / ``abstract_serve_args`` build a step's
 arguments as fake tensors (fake DTensors on a mesh) for the dry run
@@ -55,9 +72,10 @@ from repro_torch.models import ModelZoo, materialize
 from repro_torch.models.layers import (abstract, dtype_of, fake_dtensor,
                                        fit_spec_to_shape, pspec_tree,
                                        resolve_spec, spec_placements)
+from repro_torch.models.parallel import TensorParallel, leaf_roles, tp_layout
 from repro_torch.models.transformer import cache_defs
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
-                                     adamw_update, global_norm)
+                                     adamw_update)
 
 __all__ = ["use_fsdp", "value_and_grad", "make_train_step",
            "make_prefill_step", "make_decode_step", "abstract_train_args",
@@ -107,8 +125,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamWConfig] = None):
         lr_scale = lr_schedule(step) / opt.lr
         mesh = _mesh_of(params)
         if mesh is not None:
-            return _mesh_step(mesh, _batch_axes(cfg, mesh), loss_and_grads,
-                              opt, params, opt_state, batch, step, lr_scale)
+            return _mesh_step(mesh, cfg, loss_and_grads, opt, params,
+                              opt_state, batch, step, lr_scale)
         loss, grads = loss_and_grads(params, batch)
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, opt, lr_scale=lr_scale)
@@ -178,7 +196,61 @@ def _batch_global(t: torch.Tensor, dim: int, axes, mesh, full_batch: int):
                               run_check=False)
 
 
-def _mesh_step(mesh, axes, loss_and_grads, opt, params, opt_state, batch,
+def _tensor_parallel(cfg: ArchConfig, mesh, params):
+    """(the ``TensorParallel`` of this rank, the role of every leaf) for a
+    step on ``mesh``; (None, None) where no compute splits over "model"
+    (a profile other than ``tp``, a family ``tp_layout`` leaves gathered,
+    or a mesh with no "model" axis)."""
+    if not _profile(cfg, dp_axes_of(mesh))[1] or \
+            "model" not in mesh.mesh_dim_names:
+        return None, None
+    m = mesh.mesh_dim_names.index("model")
+    size, rank = mesh.size(m), mesh.get_local_rank("model")
+    layout = tp_layout(cfg, size)
+    if layout is None:
+        return None, None
+    roles = leaf_roles(cfg, ModelZoo(cfg).param_defs(), size, rank)
+    return TensorParallel(mesh.get_group("model"), size, rank, **layout), roles
+
+
+def _model_placements(p, mesh, dim: int) -> tuple:
+    """``p``'s placements with every axis but "model" replicated, "model"
+    sharding ``dim``: the layout of a split leaf in compute."""
+    from torch.distributed.tensor import Replicate, Shard
+    m = mesh.mesh_dim_names.index("model")
+    want = Shard(dim % p.ndim)
+    if p.placements[m] != want:
+        raise ValueError(f"a leaf split on dim {dim} over 'model' is stored "
+                         f"as {p.placements}")
+    return tuple(want if i == m else Replicate() for i in range(mesh.ndim))
+
+
+def _compute_view(p, role, mesh):
+    """The tensor a rank computes with: its "model" shard of a split leaf
+    (gathered over the other axes), else the whole leaf, sliced for a
+    ``("slice", ...)`` leaf."""
+    if role is None or role[0] == "gathered":
+        return p.full_tensor()
+    if role[0] == "split":
+        return p.redistribute(mesh, _model_placements(p, mesh, role[1])
+                              ).to_local()
+    _, dim, lo, hi = role
+    return p.full_tensor().narrow(dim, lo, hi - lo)
+
+
+def _storage_shard(g, p, role, mesh):
+    """This rank's shard, placed as ``p``, of the gradient ``g`` that the
+    rank holds as its compute view (a local split, no communication)."""
+    from torch.distributed.tensor import DTensor
+    if role is not None and role[0] == "split":
+        return DTensor.from_local(
+            g, mesh, _model_placements(p, mesh, role[1]), run_check=False,
+            shape=p.shape, stride=p.stride()).redistribute(
+                mesh, p.placements).to_local()
+    return _local_shard(g, mesh, p.placements)
+
+
+def _mesh_step(mesh, cfg, loss_and_grads, opt, params, opt_state, batch,
                step, lr_scale):
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
@@ -191,32 +263,60 @@ def _mesh_step(mesh, axes, loss_and_grads, opt, params, opt_state, batch,
                                   run_check=False, shape=ref.shape,
                                   stride=ref.stride())
 
-    full = tree_map(lambda p: p.full_tensor(), params)
-    loss, grads = loss_and_grads(full, tree_map(
-        lambda x: _batch_local(x, 0, axes, mesh), batch))
+    axes = _batch_axes(cfg, mesh)
+    tp, roles = _tensor_parallel(cfg, mesh, params)
+    if roles is None:
+        roles = tree_map(lambda p: None, params)
+    work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
+    local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
+    loss, grads = (loss_and_grads(work, local_batch) if tp is None else
+                   loss_and_grads(work, local_batch, tp))
+    del work
     n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
     flat = tree_flatten_with_path(grads)
-    reduced, reduces = [], 0
+    role_of = tree_leaves(roles)
+    shapes = [p.shape for p in tree_leaves(params)]
+    reduced, reduces, model_reduces = [], 0, 0
     with torch.no_grad():
-        for t in [g for _, g in flat] + [loss]:
+        for t, role, shape in zip([g for _, g in flat] + [loss],
+                                  role_of + [None], shapes + [None]):
+            if role is not None and role[0] == "slice":
+                # the kv heads this rank read, summed over "model"
+                _, dim, lo, hi = role
+                full = t.new_zeros(shape)
+                full.narrow(dim, lo, hi - lo).copy_(t)
+                dist.all_reduce(full, group=tp.group)
+                model_reduces += 1
+                t = full
             t = t.contiguous()
             for axis in axes:
                 dist.all_reduce(t, group=mesh.get_group(axis))
                 reduces += 1
             reduced.append(t.div_(n_dp))
         loss = reduced.pop()
+        # the global norm, each split leaf's squared norm summed over
+        # "model" (one all-reduce), the sum in tree order as global_norm
+        sq = [torch.sum(g.float() ** 2) for g in reduced]
+        split = [i for i, r in enumerate(role_of)
+                 if r is not None and r[0] == "split"]
+        if split and tp.size > 1:
+            part = torch.stack([sq[i] for i in split])
+            dist.all_reduce(part, group=tp.group)
+            model_reduces += 1
+            for j, i in enumerate(split):
+                sq[i] = part[j]
+        gnorm = torch.sqrt(sum(sq))
         grads = tree_unflatten([path for path, _ in flat], reduced)
-        gnorm = global_norm(grads)
-        shards = tree_map(lambda g, p: _local_shard(g, mesh, p.placements),
-                          grads, params)
-    del full, grads
+        shards = tree_map(lambda g, p, r: _storage_shard(g, p, r, mesh),
+                          grads, params, roles)
+    del grads, reduced
     new_p, new_opt, gnorm = adamw_apply(
         shards, tree_map(local, opt_state), tree_map(local, params), opt,
         gnorm, lr_scale=lr_scale)
     new_p = tree_map(like, new_p, params)
     new_opt = tree_map(like, new_opt, opt_state)
     metrics = {"loss": loss, "grad_norm": gnorm, "step": step + 1,
-               "all_reduces": reduces}
+               "all_reduces": reduces, "model_all_reduces": model_reduces}
     return new_p, new_opt, metrics
 
 
@@ -225,22 +325,51 @@ def _cache_batch_dims(cfg: ArchConfig):
     return tree_map(lambda d: d.spec.index("dp"), cache_defs(cfg, 1, 1))
 
 
+def _gather_kv_heads(c, tp: TensorParallel, cfg: ArchConfig):
+    """A prefill K/V cache (kv heads on dim -2) whole, from each rank's
+    kv heads: concatenated in rank order where "model" splits them, each
+    head from the first rank that computed it where ranks share one
+    (``"kv_slice"``)."""
+    import torch.distributed as dist
+    from repro_torch.models.parallel import kv_head_range
+    parts = [torch.empty_like(c) for _ in range(tp.size)]
+    dist.all_gather(parts, c.contiguous(), group=tp.group)
+    if tp.attn == "split":
+        return torch.cat(parts, dim=-2)
+    first = {}
+    for r in range(tp.size):
+        first.setdefault(kv_head_range(cfg, tp.size, r)[0], r)
+    return torch.cat([parts[first[j]] for j in range(cfg.num_kv_heads)],
+                     dim=-2)
+
+
 def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
-    """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: gathered
-    parameters, this rank's slice of the batch and the caches, the
-    outputs as DTensors sharded on their batch dimension."""
+    """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
+    rank's slice of the batch and the caches, the outputs as DTensors
+    sharded on their batch dimension.  Prefill splits over "model" as
+    the train step does (``_tensor_parallel``); decode gathers the
+    parameters."""
     axes = _batch_axes(cfg, mesh)
     dims = _cache_batch_dims(cfg)
-    full = tree_map(lambda p: p.full_tensor(), params)
+    tp, roles = (_tensor_parallel(cfg, mesh, params) if caches is None
+                 else (None, None))
+    if roles is None:
+        roles = tree_map(lambda p: None, params)
+    work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
     b = next(iter(batch.values())).shape[0]
     local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
-    if caches is None:
-        logits, new_caches = call(full, local_batch)
-    else:
-        logits, new_caches = call(full, tree_map(
+    if caches is not None:
+        logits, new_caches = call(work, tree_map(
             lambda c, d: _batch_local(c, d, axes, mesh), caches, dims),
             local_batch)
-    del full
+    elif tp is None:
+        logits, new_caches = call(work, local_batch)
+    else:
+        logits, new_caches = call(work, local_batch, tp)
+        if tp.attn != "gathered" and tp.size > 1:
+            new_caches = tree_map(lambda c: _gather_kv_heads(c, tp, cfg),
+                                  new_caches)
+    del work
     return (_batch_global(logits, 0, axes, mesh, b),
             tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
                      new_caches, dims))

@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 
-from .losses import chunked_xent
+from .losses import chunked_xent, head_logits
+from .parallel import gather_from_model
 from .transformer import cache_defs, lm_decode_step, lm_forward, model_defs
 
 __all__ = ["ModelZoo", "InputDef"]
@@ -69,23 +70,26 @@ class ModelZoo:
         return out
 
     # ------------------------------------------------------------- fwd paths
-    def train_loss(self, params, batch) -> torch.Tensor:
+    def train_loss(self, params, batch, tp=None) -> torch.Tensor:
         """Mean next-token cross-entropy over the batch (``tokens``,
         ``labels``, and the family's embeddings) + 0.01 · the MoE
-        balance term."""
+        balance term.  ``tp``: tensor-parallel compute over "model"
+        (``models.parallel``; ``params`` then holds this rank's shards
+        of the split leaves); the loss is the same on every rank."""
         cfg = self.cfg
-        hidden, _, aux = lm_forward(params, batch, cfg, mode="train")
+        hidden, _, aux = lm_forward(params, batch, cfg, mode="train", tp=tp)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         loss = chunked_xent(hidden, head, batch["labels"], cfg.loss_chunk,
-                            valid_vocab=cfg.vocab_size)
+                            valid_vocab=cfg.vocab_size, tp=tp)
         return loss + 0.01 * aux
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, tp=None):
         """Full-sequence forward: (last-position logits (B, 1, vocab) f32,
-        caches)."""
+        caches).  Under ``tp`` the logits are whole on every rank and the
+        K/V caches hold this rank's kv heads."""
         hidden, caches, _ = lm_forward(params, batch, self.cfg,
-                                       mode="prefill")
-        return self._last_logits(params, hidden), caches
+                                       mode="prefill", tp=tp)
+        return self._last_logits(params, hidden, tp), caches
 
     def decode(self, params, caches, batch):
         """One token per sequence against ``caches`` (widened by the
@@ -93,11 +97,12 @@ class ModelZoo:
         hidden, new_caches = lm_decode_step(params, caches, batch, self.cfg)
         return self._last_logits(params, hidden), new_caches
 
-    def _last_logits(self, params, hidden):
+    def _last_logits(self, params, hidden, tp=None):
         cfg = self.cfg
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
-        h = hidden[:, -1:, :]
-        logits = (h @ head.to(h.dtype)).float()
+        logits = head_logits(hidden[:, -1:, :], head, tp)
+        if tp is not None and tp.head == "vocab":
+            logits = gather_from_model(logits, -1, tp)
         return logits[:, :, :cfg.vocab_size]  # drop sharding-pad classes
 
     # ------------------------------------------------------ analytic model

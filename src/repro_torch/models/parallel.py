@@ -1,0 +1,289 @@
+"""Tensor-parallel compute over the "model" mesh axis (the port's
+counterpart of GSPMD partitioning the reference's jitted step over the
+leaves that ``pspec_tree`` tags "model").
+
+The dense family's layers take their "model"-tagged weights as each
+rank's shard and add the collectives that make the result the plain
+one, on the "model" process group (explicit ``torch.distributed`` calls;
+DTensor has no rules for attention's einsums, the checkpoints or the
+chunked loss):
+
+* attention: ``wq`` / ``wk`` / ``wv`` column-parallel by whole heads,
+  each rank attending over its own heads, ``wo`` row-parallel and one
+  all-reduce.  Where "model" does not divide the kv heads but does the
+  q heads (llama3-8b's 8 kv heads on 16 ranks), each rank computes the
+  kv heads its q heads read from the gathered ``wk`` / ``wv``
+  (``"kv_slice"``); where it does not divide the q heads (smollm-135m's
+  9), the block stays gathered;
+* the MLP: ``w1`` / ``w3`` column-parallel, ``w2`` row-parallel, one
+  all-reduce;
+* the embedding (split on d): each rank looks up its slice of d, then an
+  all-gather along d;
+* the head: untied and split on the vocabulary, a vocabulary-parallel
+  cross-entropy (the max and the sum of exponentials all-reduced, the
+  gold logit from the rank that owns it) and logits gathered over the
+  vocabulary; tied (``embed.T``, split on d), row-parallel with the
+  logits all-reduced.
+
+The collectives carry gradients in pairs (Megatron-LM's f and g):
+:func:`copy_to_model` is the identity forward and an all-reduce
+backward, :func:`reduce_from_model` an all-reduce forward and the
+identity backward, :func:`gather_from_model` an all-gather forward and
+this rank's slice backward.  Activations and their gradients between
+the split blocks are the same on every rank of the group, so a
+checkpoint's recompute issues the same collectives in the same order on
+every rank.  No sum uses atomics.  A group of one rank issues no
+collective (a sum over one rank is its input): every operation is then
+the plain path's, and the result the plain one bit for bit
+(:func:`vocab_logsumexp` is ``torch.logsumexp``'s arithmetic on any
+group).
+
+:func:`tp_layout` decides, per architecture and group size, which blocks
+split; :func:`leaf_roles` says, per parameter leaf, whether the step
+hands it over as its "model" shard (``("split", dim)``), gathered
+(``("gathered",)``) or gathered and sliced to the kv heads this rank
+reads (``("slice", dim, start, stop)``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Tuple
+
+import torch
+
+from repro_torch._tree import tree_flatten_with_path, tree_unflatten
+
+__all__ = ["TensorParallel", "tp_layout", "leaf_roles", "gathered_leaves",
+           "copy_to_model", "reduce_from_model", "gather_from_model",
+           "vocab_logsumexp", "vocab_gold", "kv_head_range"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorParallel:
+    """The "model" group a step splits over, and what it splits.
+
+    ``attn``: "split", "kv_slice" or "gathered"; ``mlp`` / ``embed``:
+    split or not; ``head``: "vocab" (untied, split on the vocabulary),
+    "rows" (tied ``embed.T``, split on d) or None (gathered)."""
+    group: Any
+    size: int
+    rank: int
+    attn: str
+    mlp: bool
+    embed: bool
+    head: Optional[str]
+
+
+def tp_layout(cfg, size: int) -> Optional[dict]:
+    """Which blocks of ``cfg`` split over a "model" group of ``size``
+    ranks; None where the family keeps the gathered step (every family
+    but dense, in this slice)."""
+    if cfg.family != "dense":
+        return None
+    h, kh = cfg.num_heads, cfg.num_kv_heads
+    attn = "gathered"
+    if h % size == 0:
+        local, group = h // size, h // kh
+        if kh % size == 0:
+            attn = "split"
+        elif group % local == 0:
+            attn = "kv_slice"
+    embed = cfg.d_model % size == 0
+    if cfg.tie_embeddings:
+        head = "rows" if embed else None
+    else:
+        head = "vocab" if cfg.padded_vocab() % size == 0 else None
+    return dict(attn=attn, mlp=cfg.d_ff % size == 0, embed=embed, head=head)
+
+
+def kv_head_range(cfg, size: int, rank: int) -> Tuple[int, int]:
+    """The kv heads [start, stop) that this rank's q heads read."""
+    local = cfg.num_heads // size
+    group = cfg.num_heads // cfg.num_kv_heads
+    return (rank * local) // group, ((rank + 1) * local - 1) // group + 1
+
+
+def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
+               rank: int):
+    name = path[-1]
+    if path == ("embed",):
+        return ("split", -1) if layout["embed"] else ("gathered",)
+    if path == ("head",):
+        return ("split", -1) if layout["head"] == "vocab" else ("gathered",)
+    block = path[-2] if len(path) > 1 else None
+    if block == "attn" and layout["attn"] != "gathered":
+        if name == "wq":
+            return ("split", -1)
+        if name == "wo":
+            return ("split", -2)
+        if layout["attn"] == "split":
+            return ("split", -1)
+        lo, hi = kv_head_range(cfg, size, rank)
+        return ("slice", -1, lo * cfg.head_dim, hi * cfg.head_dim)
+    if block == "mlp" and layout["mlp"]:
+        return ("split", -2) if name == "w2" else ("split", -1)
+    return ("gathered",)
+
+
+def leaf_roles(cfg, defs, size: int, rank: int) -> Optional[Any]:
+    """The role of every leaf of the ``ParamDef`` tree ``defs`` on rank
+    ``rank`` of a "model" group of ``size`` (see the module docstring);
+    None where :func:`tp_layout` is None."""
+    layout = tp_layout(cfg, size)
+    if layout is None:
+        return None
+    flat = tree_flatten_with_path(defs)
+    return tree_unflatten([p for p, _ in flat],
+                          [_leaf_role(p, cfg, layout, size, rank)
+                           for p, _ in flat])
+
+
+def gathered_leaves(cfg, defs, size: int,
+                    step_gathers: Optional[str] = None) -> List[dict]:
+    """The leaves that ``pspec_tree`` tags "model" but that a split step
+    computes gathered (whole, or sliced to the kv heads a rank reads),
+    each with the reason: what the dry run names.  ``step_gathers``: the
+    reason a step gathers every leaf (decode, in this slice)."""
+    layout = None if step_gathers else tp_layout(cfg, size)
+    out = []
+    for path, d in tree_flatten_with_path(defs):
+        if "model" not in d.spec:
+            continue
+        role = (_leaf_role(path, cfg, layout, size, 0) if layout is not None
+                else ("gathered",))
+        if role[0] == "split":
+            continue
+        if step_gathers:
+            why = step_gathers
+        elif layout is None:
+            why = f"family {cfg.family!r} keeps the gathered step"
+        elif path[-2:-1] == ("attn",) and role[0] == "slice":
+            why = (f"{cfg.num_kv_heads} kv heads on {size} ranks: each rank "
+                   "computes the kv heads its q heads read")
+        elif path[-2:-1] == ("attn",):
+            why = f"{cfg.num_heads} q heads on {size} ranks"
+        elif path[-2:-1] == ("mlp",):
+            why = f"d_ff {cfg.d_ff} on {size} ranks"
+        elif path == ("head",):
+            why = f"padded vocabulary {cfg.padded_vocab()} on {size} ranks"
+        else:
+            why = f"d_model {cfg.d_model} on {size} ranks"
+        out.append(dict(leaf="/".join(path), role=role[0], reason=why))
+    return out
+
+
+# ------------------------------------------------ collectives with gradients
+
+def _all_reduce(t: torch.Tensor, group, op=None) -> torch.Tensor:
+    """A contiguous copy of ``t`` all-reduced over ``group``."""
+    import torch.distributed as dist
+    out = t.clone(memory_format=torch.contiguous_format)
+    if op is None:
+        dist.all_reduce(out, group=group)
+    else:
+        dist.all_reduce(out, op=op, group=group)
+    return out
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank):
+        import torch.distributed as dist
+        dim = dim % x.dim()
+        ctx.dim, ctx.rank, ctx.n = dim, rank, x.shape[dim]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n),
+                None, None, None, None)
+
+
+def copy_to_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Identity forward; the gradient all-reduced over the group."""
+    if tp.size == 1:
+        return x
+    return _CopyToModel.apply(x, tp.group)
+
+
+def reduce_from_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sum over the group; the gradient passed through."""
+    if tp.size == 1:
+        return x
+    return _ReduceFromModel.apply(x, tp.group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int,
+                      tp: TensorParallel) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order; the
+    gradient's slice of this rank."""
+    if tp.size == 1:
+        return x
+    return _GatherFromModel.apply(x, dim, tp.group, tp.size, tp.rank)
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``torch.logsumexp(logits, -1)`` over logits split on their last
+    dimension across the group, with its arithmetic: the max (here over
+    the group), infinities zeroed, the sum of ``exp(x - max)`` (here
+    all-reduced), ``log`` and the max added; backward
+    ``grad * exp(x - result)``."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        import torch.distributed as dist
+        m = _all_reduce(torch.amax(logits, -1, keepdim=True), group,
+                        dist.ReduceOp.MAX)
+        m.masked_fill_(m.abs() == float("inf"), 0)
+        s = _all_reduce(torch.sum((logits - m).exp_(), -1), group)
+        lse = s.log_().add_(m.squeeze(-1))
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, lse = ctx.saved_tensors
+        return grad.unsqueeze(-1) * (logits - lse.unsqueeze(-1)).exp(), None
+
+
+def vocab_logsumexp(logits: torch.Tensor, tp: TensorParallel):
+    """logsumexp over the vocabulary of logits split on it (last dim)."""
+    if tp.size == 1:
+        return torch.logsumexp(logits, dim=-1)
+    return _VocabLogSumExp.apply(logits, tp.group)
+
+
+def vocab_gold(logits: torch.Tensor, labels: torch.Tensor, lo: int,
+               tp: TensorParallel) -> torch.Tensor:
+    """The gold logit of each label, from logits whose last dimension
+    holds classes [lo, lo + n) on this rank: the owning rank's value,
+    zero elsewhere, summed over the group."""
+    n = logits.shape[-1]
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    return reduce_from_model(torch.where(mine, picked[..., 0], 0.0), tp)

@@ -33,6 +33,7 @@ from .layers import ParamDef, rmsnorm, rope, stack_defs, swiglu
 from .mamba2 import (mamba_apply, mamba_cache_defs, mamba_decode_step,
                      mamba_defs)
 from .moe import moe_apply, moe_defs
+from .parallel import copy_to_model, gather_from_model, reduce_from_model
 
 __all__ = ["attn_defs", "mlp_defs", "block_defs", "model_defs", "lm_forward",
            "lm_decode_step", "cache_defs", "hidden_for_tokens",
@@ -98,8 +99,11 @@ def attn_defs(cfg, d_in: Optional[int] = None) -> dict:
 
 
 def _qkv(params, x, cfg):
+    """Q, K, V for the heads the weights hold: all of them, or this
+    rank's under tensor-parallel compute."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h, kh = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
     q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
     k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kh, hd)
     v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kh, hd)
@@ -107,9 +111,16 @@ def _qkv(params, x, cfg):
 
 
 def attn_apply(params, x, cfg, *, causal: bool = True, pos0: int = 0,
-               use_rope: bool = True):
-    """Full-sequence attention (train / prefill). Returns (out, (k, v))."""
+               use_rope: bool = True, tp=None):
+    """Full-sequence attention (train / prefill). Returns (out, (k, v)).
+
+    Under ``tp`` with a split attention block the weights are this rank's
+    heads (``wo`` its rows): (k, v) hold this rank's kv heads and the
+    output is all-reduced over the "model" group."""
     b, s, _ = x.shape
+    split = tp is not None and tp.attn != "gathered"
+    if split:
+        x = copy_to_model(x, tp)
     q, k, v = _qkv(params, x, cfg)
     if use_rope:
         positions = torch.arange(s, device=x.device) + pos0
@@ -118,6 +129,8 @@ def attn_apply(params, x, cfg, *, causal: bool = True, pos0: int = 0,
     out = chunked_attention(q, k, v, causal=causal, chunk=cfg.attn_chunk,
                             q_offset=pos0, causal_unroll=cfg.attn_causal_unroll)
     out = out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+    if split:
+        out = reduce_from_model(out, tp)
     return out, (k, v)
 
 
@@ -170,9 +183,16 @@ def mlp_defs(cfg, d_ff: Optional[int] = None) -> dict:
     }
 
 
-def mlp_apply(params, x):
-    return swiglu(x, params["w1"].to(x.dtype), params["w3"].to(x.dtype),
-                  params["w2"].to(x.dtype))
+def mlp_apply(params, x, tp=None):
+    """SwiGLU; under ``tp`` with a split MLP, ``w1`` / ``w3`` are this
+    rank's columns and ``w2`` its rows, and the output is all-reduced
+    over the "model" group."""
+    split = tp is not None and tp.mlp
+    if split:
+        x = copy_to_model(x, tp)
+    out = swiglu(x, params["w1"].to(x.dtype), params["w3"].to(x.dtype),
+                 params["w2"].to(x.dtype))
+    return reduce_from_model(out, tp) if split else out
 
 
 # -------------------------------------------------------------------- blocks
@@ -206,8 +226,9 @@ def shared_attn_defs(cfg) -> dict:
             "mlp": mlp_defs(cfg)}
 
 
-def block_apply(params, x, cfg, mode: str, kv_cache=None):
-    """Apply one layer (``mode`` "train", "prefill" or "decode").
+def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None):
+    """Apply one layer (``mode`` "train", "prefill" or "decode"; ``tp``
+    the dense family's tensor-parallel compute in train and prefill).
     Returns (x, new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
@@ -215,14 +236,14 @@ def block_apply(params, x, cfg, mode: str, kv_cache=None):
         if mode == "decode":
             a, new_kv = attn_decode_apply(params["attn"], h, cfg, kv_cache)
         else:
-            a, kv = attn_apply(params["attn"], h, cfg, causal=True)
+            a, kv = attn_apply(params["attn"], h, cfg, causal=True, tp=tp)
             new_kv = torch.stack(kv) if mode == "prefill" else None
         x = x + a
         h = rmsnorm(x, params["ln2"])
         if cfg.family == "moe":
             m, aux = moe_apply(params["moe"], h, cfg)
         else:
-            m = mlp_apply(params["mlp"], h)
+            m = mlp_apply(params["mlp"], h, tp)
         return x + m, new_kv, aux
     # ssm / hybrid mamba layer
     h = rmsnorm(x, params["ln1"])
@@ -318,9 +339,14 @@ def cache_defs(cfg, batch: int, seq: int) -> dict:
 
 # ------------------------------------------------------------- model (apply)
 
-def hidden_for_tokens(params, tokens, cfg):
-    """Embedding lookup; activations are always bf16."""
-    return params["embed"][tokens.long()].to(torch.bfloat16)
+def hidden_for_tokens(params, tokens, cfg, tp=None):
+    """Embedding lookup; activations are always bf16.  Under ``tp`` with
+    the embedding split on d, this rank's slice of d is looked up and
+    gathered along d over the "model" group."""
+    x = params["embed"][tokens.long()].to(torch.bfloat16)
+    if tp is not None and tp.embed:
+        x = gather_from_model(x, -1, tp)
+    return x
 
 
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
@@ -354,33 +380,43 @@ def _remat(body, cfg, mode: str):
                              preserve_rng_state=False, **kw)
 
 
-def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True):
+def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True,
+                tp=None):
     """Apply stacked layers in order, threading per-layer caches in and
     out.  Returns (x, stacked new caches or None in train mode, summed
-    aux)."""
+    aux).  A layer's recompute under its checkpoint runs its collectives
+    again, in the same order on every rank."""
     body = _remat(block_apply, cfg, mode) if remat else block_apply
     layers = _unstack(layers_params)
     caches = [None] * len(layers) if caches is None else _unstack(caches)
     new, aux = [], 0.0
     for lp, cache in zip(layers, caches):
-        x, c, a = body(lp, x, cfg, mode, cache)
+        x, c, a = body(lp, x, cfg, mode, cache, tp)
         new.append(c)
         aux = aux + a
     return x, (_stack(new) if mode != "train" else None), aux
 
 
-def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train"):
+def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
+               tp=None):
     """Forward over a full sequence, ``mode`` "train" or "prefill".
 
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
+    ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense
+    family only): the parameters are this rank's shards of the split
+    leaves, the hidden states the full ones, and prefill's K/V caches
+    hold this rank's kv heads.
     """
+    if tp is not None and cfg.family != "dense":
+        raise ValueError(f"tensor-parallel compute covers the dense family, "
+                         f"not {cfg.family!r}")
     if mode not in ("train", "prefill"):
         raise ValueError(f"lm_forward: mode={mode!r}")
     if cfg.family == "encdec":
         return _encdec_forward(params, inputs, cfg, mode)
 
-    x = hidden_for_tokens(params, inputs["tokens"], cfg)
+    x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
     if cfg.family == "vlm" and cfg.num_patch_tokens and "patch_embeds" in inputs:
         pe = inputs["patch_embeds"].to(x.dtype)
         x = x.clone()
@@ -389,7 +425,7 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train"):
     if cfg.family == "hybrid":
         return _hybrid_forward(params, x, cfg, mode)
 
-    x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode)
+    x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode, tp=tp)
     x = rmsnorm(x, params["final_norm"])
     if mode == "train":
         return x, None, aux
