@@ -265,7 +265,18 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               prefill, the CUDA-event ms of both; reduced llama3-8b
               (untied: the vocabulary-parallel loss and the gathered
               logits) takes 3 split steps and a split prefill, bit for
-              bit with the plain ones.  Then a save from the mesh,
+              bit with the plain ones.  The split decode: after the split
+              prefill, 4 greedy steps of ``make_decode_step`` on the
+              caches as ``cache_defs`` lays them out (the sequence "split"
+              over the group of one, ``widen_mesh_caches`` between the
+              steps) against ``ModelZoo.decode`` on ``widen_caches``, bit
+              for bit, with the CUDA-event ms of both per step.
+              pixtral-12b (the VLM family) at its full width and 2
+              layers (bf16 parameters, seeded random weights): one split
+              train step (2 × 2,048 tokens, patch embeddings over the
+              first 1,024 positions), the split prefill and 2 split
+              decode steps against the plain calls, bit for bit, with
+              their ms.  Then a save from the mesh,
               ``plan_mesh(1, 1)``, a restore
               through ``remesh`` and one more step, its loss bit for bit
               with the uninterrupted run's; ``ef_roundtrip`` and
@@ -305,7 +316,11 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               and bytes per device beside the gathered step's
               (``GATHERED_STEP``: 1.412e14 FLOPs, 23.25 GB, as PERF.md §6
               records them), and the leaves it keeps gathered
-              (the attention: 9 q heads on 16 ranks).
+              (the attention: 9 q heads on 16 ranks).  internlm2-1.8b ×
+              decode_32k (after (a) and mamba2): the split decode,
+              each rank's slice of the K/V caches' sequence; its FLOPs and
+              bytes per device beside the decode that gathered the
+              parameters and the caches (``GATHERED_STEP``).
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -3331,9 +3346,10 @@ def split_layout(cfg, mesh, params) -> dict:
                                         head=tp.head)
 
 
-def split_prefill_bits(cfg, p_mesh, p_plain, tokens, dev, reps=3) -> dict:
+def split_prefill_bits(cfg, p_mesh, p_plain, batch, dev, reps=3) -> dict:
     """``make_prefill_step`` on a mesh state against ``ModelZoo.prefill``
-    on the plain state: the logits and K/V caches bit for bit, and the
+    on the plain state, on ``batch`` (tokens, and the VLM's patch
+    embeddings): the logits and K/V caches bit for bit, and the
     CUDA-event ms of both (the median of ``reps`` calls each, in
     turns)."""
     import numpy as np
@@ -3342,7 +3358,6 @@ def split_prefill_bits(cfg, p_mesh, p_plain, tokens, dev, reps=3) -> dict:
     from repro_torch.launch import make_prefill_step
     from repro_torch.models import ModelZoo
     split, plain = make_prefill_step(cfg), ModelZoo(cfg).prefill
-    batch = {"tokens": tokens}
     times = {"split": [], "plain": []}
 
     def timed_call(fn, params):
@@ -3363,7 +3378,7 @@ def split_prefill_bits(cfg, p_mesh, p_plain, tokens, dev, reps=3) -> dict:
     diff += [f"cache{i}" for i, (a, b) in enumerate(zip(
         tree_leaves(got_c), tree_leaves(want_c)))
         if not bit_equal(a.full_tensor(), b)]
-    return dict(batch=list(tokens.shape), bits_differ=diff,
+    return dict(batch=list(batch["tokens"].shape), bits_differ=diff,
                 split_ms=times["split"], plain_ms=times["plain"],
                 split_ms_median=float(np.median(times["split"])),
                 plain_ms_median=float(np.median(times["plain"])))
@@ -3398,15 +3413,143 @@ def reduced_split_bits(mesh, dev, steps=3) -> dict:
         diff += [f"step{n}/{i}" for i, (a, b) in enumerate(zip(
             tree_leaves({"p": p_m, "o": o_m}), tree_leaves({"p": p, "o": o})))
             if not bit_equal(a.full_tensor(), b)]
-    pre = split_prefill_bits(cfg, p_m, p, batch["tokens"], dev, reps=1)
+    pre = split_prefill_bits(cfg, p_m, p, {"tokens": batch["tokens"]}, dev,
+                             reps=1)
     return dict(steps=steps, layout=split_layout(cfg, mesh, p_m),
                 bits_differ=diff + pre["bits_differ"])
 
 
+def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
+    """``make_prefill_step`` on ``batch`` (tokens, and the VLM's patch
+    embeddings) then ``steps`` greedy ``make_decode_step``
+    calls on a mesh state (``widen_mesh_caches`` between them; the K/V
+    caches placed as ``cache_defs`` lays them out, split on the sequence
+    over "model") against ``ModelZoo.prefill`` then ``.decode`` on
+    ``widen_caches`` on the plain state, both fed the plain chain's greedy
+    tokens: the logits and caches bit for bit after the prefill and
+    every step, and the CUDA-event ms of each decode call (the widen
+    outside it; after one untimed call of each)."""
+    import numpy as np
+    import torch
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch import (make_decode_step, make_prefill_step,
+                                    widen_mesh_caches)
+    from repro_torch.models import ModelZoo, widen_caches
+    zoo = ModelZoo(cfg)
+    decode = make_decode_step(cfg)
+    times = {"split": [], "plain": []}
+
+    def timed_call(fn, *args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with torch.inference_mode():
+            out = fn(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return out, ev[0].elapsed_time(ev[1])
+
+    def differ(tag, got_l, got_c, want_l, want_c):
+        diff = [] if bit_equal(got_l.full_tensor(), want_l) else [
+            f"{tag}/logits"]
+        return diff + [f"{tag}/cache{i}" for i, (a, b) in enumerate(zip(
+            tree_leaves(got_c), tree_leaves(want_c)))
+            if not bit_equal(a.full_tensor(), b)]
+
+    with torch.inference_mode():
+        got_l, got_c = make_prefill_step(cfg)(p_mesh, batch)
+        want_l, want_c = zoo.prefill(p_plain, batch)
+    diff = differ("prefill", got_l, got_c, want_l, want_c)
+    placements = [str(tuple(got_c["kv"].placements))]
+    with torch.inference_mode():   # one untimed call of each, to warm up
+        tok = want_l.argmax(-1).to(torch.int32)
+        decode(p_mesh, widen_mesh_caches(cfg, got_c), {"tokens": tok})
+        zoo.decode(p_plain, widen_caches(want_c), {"tokens": tok})
+    for n in range(steps):
+        tok = want_l.argmax(-1).to(torch.int32)
+        with torch.inference_mode():
+            got_in = widen_mesh_caches(cfg, got_c)
+            want_in = widen_caches(want_c)
+        (got_l, got_c), ms = timed_call(decode, p_mesh, got_in,
+                                        {"tokens": tok})
+        times["split"].append(ms)
+        (want_l, want_c), ms = timed_call(zoo.decode, p_plain, want_in,
+                                          {"tokens": tok})
+        times["plain"].append(ms)
+        diff += differ(f"step{n}", got_l, got_c, want_l, want_c)
+        placements.append(str(tuple(got_c["kv"].placements)))
+    return dict(batch=list(batch["tokens"].shape), steps=steps,
+                bits_differ=diff,
+                cache_seq=int(want_c["kv"].shape[3]),
+                cache_placements=placements,
+                split_ms=times["split"], plain_ms=times["plain"],
+                split_ms_median=float(np.median(times["split"])),
+                plain_ms_median=float(np.median(times["plain"])))
+
+
+def vlm_split_bits(mesh, dev, layers=2, b=2, s=2048, decode_steps=2) -> dict:
+    """pixtral-12b at its full width (d 5,120, 32 q / 8 kv heads, d_ff
+    14,336, vocabulary 131,072, bf16 parameters, f32 moments) and
+    ``layers`` layers on ``mesh``, seeded random weights: one split train
+    step (``b`` × ``s`` tokens, patch embeddings over the first 1,024
+    positions), the split prefill and ``decode_steps`` split decode steps
+    against the plain calls from the same state, bit for bit.  The plain
+    state is the mesh leaves' local tensors (one rank's shards are
+    whole: the same storage); the mesh step's new state goes to the host
+    before the plain step runs, so that the card never holds two new
+    states."""
+    import dataclasses
+    import torch
+    from repro_torch._tree import tree_flatten_with_path, tree_leaves, \
+        tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.launch import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config("pixtral-12b"), num_layers=layers)
+    p_m, o_m = init_train_state(cfg, mesh,
+                                torch.Generator(device=dev).manual_seed(0))
+    local = lambda t: t.to_local()
+    p, o = tree_map(local, p_m), tree_map(local, o_m)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=7)
+                              ).batch(0, device=dev)
+    batch["patch_embeds"] = torch.randn(
+        (b, cfg.num_patch_tokens, cfg.d_model), dtype=torch.float32,
+        device=dev, generator=torch.Generator(device=dev).manual_seed(1)
+    ).to(torch.bfloat16)
+    step = make_train_step(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    (new_m, ms_m) = timed(lambda: step(p_m, o_m, batch, 0))
+    host = tree_map(lambda t: t.to_local().cpu(),
+                    {"p": new_m[0], "o": new_m[1]})
+    loss_m = new_m[2]["loss"]
+    del new_m
+    (new_p, ms_p) = timed(lambda: step(p, o, batch, 0))
+    diff = [] if bit_equal(loss_m, new_p[2]["loss"]) else ["train/loss"]
+    diff += ["train/" + "/".join(path) for (path, a), b_ in zip(
+        tree_flatten_with_path(host),
+        tree_leaves({"p": new_p[0], "o": new_p[1]}))
+        if not bit_equal(a, b_.cpu())]
+    peak = torch.cuda.max_memory_allocated()
+    del new_p, host
+    serve = {k: batch[k] for k in ("tokens", "patch_embeds")}
+    pre = split_prefill_bits(cfg, p_m, p, serve, dev, reps=1)
+    dec = split_decode_bits(cfg, p_m, p, serve, dev, steps=decode_steps)
+    return dict(arch="pixtral-12b", layers=layers, batch=[b, s],
+                params=sum(t.numel() for t in tree_leaves(p)),
+                layout=split_layout(cfg, mesh, p_m),
+                train_step_ms=dict(split=ms_m * 1e3, plain=ms_p * 1e3),
+                train_peak_memory_bytes=peak, loss=float(loss_m),
+                prefill_ms=dict(split=pre["split_ms_median"],
+                                plain=pre["plain_ms_median"]),
+                decode_ms=dict(split=dec["split_ms_median"],
+                               plain=dec["plain_ms_median"]),
+                decode_cache_placements=dec["cache_placements"],
+                bits_differ=diff + pre["bits_differ"] + dec["bits_differ"])
+
+
 def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
              s=256, steps=5):
-    """Phase 14: the distributed training path on a one-rank mesh (see the
-    module docstring).  Restores phase 13's checkpoint of ``name`` at
+    """Phase 14: the distributed training and serving paths on a one-rank
+    mesh (see the module docstring).  Restores phase 13's checkpoint of ``name`` at
     ``ckpt_step`` and removes it when done."""
     import shutil
     import numpy as np
@@ -3515,16 +3658,22 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                    steps_bit_identical=steps)
 
         # 3b. the split prefill on the same state, bit for bit
-        row["prefill"] = split_prefill_bits(cfg, p_m, p, batch["tokens"],
-                                            dev)
+        row["prefill"] = split_prefill_bits(cfg, p_m, p,
+                                            {"tokens": batch["tokens"]}, dev)
         row["reduced_llama3_8b"] = reduced_split_bits(mesh, dev)
+        # 3c. the split decode after the split prefill, and the VLM family
+        row["decode"] = split_decode_bits(cfg, p_m, p,
+                                          {"tokens": batch["tokens"]}, dev)
+        row["pixtral_12b"] = vlm_split_bits(mesh, dev)
         emit(dict(phase="mesh", part="split", nvidia_smi=smi,
                   split_layout=row["split_layout"],
                   train_step_ms_median=row["mesh_step_ms_median"],
                   plain_step_ms_median=row["plain_step_ms_median"],
-                  prefill=row["prefill"],
-                  reduced_llama3_8b=row["reduced_llama3_8b"]))
-        for part in (row["prefill"], row["reduced_llama3_8b"]):
+                  prefill=row["prefill"], decode=row["decode"],
+                  reduced_llama3_8b=row["reduced_llama3_8b"],
+                  pixtral_12b=row["pixtral_12b"]))
+        for part in (row["prefill"], row["reduced_llama3_8b"],
+                     row["decode"], row["pixtral_12b"]):
             assert not part["bits_differ"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
@@ -3752,13 +3901,20 @@ def launch_step_analysis(dev, smi, serve_row, train_row, b=8, s=256):
 # The dry run's cells of phase 15 (b).  The first runs in a helper thread
 # beside (a), the rest after (a); ``run_cell`` traces a cell's passes at
 # once in worker processes, forked from the server ``main`` started.
-LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"))
+LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
+                ("internlm2-1.8b", "decode_32k"))
 
-# smollm-135m × train_4k as the step counted it when every rank gathered
-# every leaf over "model" (PERF.md §6): FLOPs per device (the roofline's
-# composition) and bytes per device (arguments + temporaries, single pod)
-GATHERED_STEP = {"arch": "smollm-135m", "shape": "train_4k",
-                 "flops_per_device": 1.412e14, "bytes_per_device": 23.25e9}
+# Cells as the step counted them when every rank gathered every leaf over
+# "model" (PERF.md §6): FLOPs per device (the roofline's composition) and
+# bytes per device (arguments + temporaries, single pod).  smollm-135m ×
+# train_4k's train step; internlm2-1.8b × decode_32k's decode, which also
+# gathered the K/V caches' sequence over "model" (the dry run of the
+# parent commit 7e926fc on the CPU).
+GATHERED_STEP = {
+    ("smollm-135m", "train_4k"): {"flops_per_device": 1.412e14,
+                                  "bytes_per_device": 23.25e9},
+    ("internlm2-1.8b", "decode_32k"): {"flops_per_device": 7.8735474688e10,
+                                       "bytes_per_device": 86.951010344e9}}
 
 
 def run_launch(dev, smi, serve_row, train_row):
@@ -3812,13 +3968,13 @@ def run_launch(dev, smi, serve_row, train_row):
             unmatched=sp.get("unmatched_collectives"),
             tensor_parallel=r.get("tensor_parallel")))
         c = cells[-1]
-        if (arch, shape) == (GATHERED_STEP["arch"], GATHERED_STEP["shape"]) \
-                and c["flops_per_device"] is not None:
-            c["gathered_step"] = GATHERED_STEP
+        gathered = GATHERED_STEP.get((arch, shape))
+        if gathered is not None and c["flops_per_device"] is not None:
+            c["gathered_step"] = gathered
             c["flops_over_gathered"] = (c["flops_per_device"]
-                                        / GATHERED_STEP["flops_per_device"])
+                                        / gathered["flops_per_device"])
             c["bytes_over_gathered"] = (c["bytes_per_device"]
-                                        / GATHERED_STEP["bytes_per_device"])
+                                        / gathered["bytes_per_device"])
     row = dict(phase="launch", part="dryrun", nvidia_smi=smi, world=512,
                cells=cells, seconds=time.perf_counter() - t_phase)
     emit(row)
@@ -3826,8 +3982,12 @@ def run_launch(dev, smi, serve_row, train_row):
         assert c["ok"] and c["error"] is None, c
         assert c["device_type"] == dev.type and not c["unmatched"], c
         assert c["flops_per_device"] > 0 and c["collectives"] > 0, c
-    # the split step does less per device than the gathered one did
-    assert cells[0]["flops_over_gathered"] < 1.0, cells[0]
+    # the split steps do less per device than the gathered ones did, and
+    # the split decode holds its share of the caches
+    for c in cells:
+        if (c["arch"], c["shape"]) in GATHERED_STEP:
+            assert c["flops_over_gathered"] < 1.0, c
+            assert c["bytes_over_gathered"] < 1.0, c
     return dict(step=step, dryrun=row)
 
 

@@ -9,10 +9,10 @@ from .mesh import dp_axes_of, make_mesh_from_devices, make_production_mesh
 from .train import (abstract_serve_args, abstract_train_args,
                     init_train_state, lr_schedule, make_decode_step,
                     make_prefill_step, make_train_step, state_shardings,
-                    use_fsdp, value_and_grad)
+                    use_fsdp, value_and_grad, widen_mesh_caches)
 
 __all__ = ["dp_axes_of", "make_mesh_from_devices", "make_production_mesh",
            "abstract_serve_args", "abstract_train_args",
            "init_train_state", "lr_schedule", "make_decode_step",
            "make_prefill_step", "make_train_step", "state_shardings",
-           "use_fsdp", "value_and_grad"]
+           "use_fsdp", "value_and_grad", "widen_mesh_caches"]

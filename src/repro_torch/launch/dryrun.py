@@ -20,16 +20,20 @@ cell this:
      keep the reference's layout.
 
 The step is the port's own (``launch.train``).  Under the ``tp``
-profile the dense family's step splits over 'model' as GSPMD partitions
-the reference's (``models.parallel``): a rank holds and computes its
-share of every split leaf, so its FLOPs, bytes, collectives and peak
-are one rank's.  A cell's JSON names the leaves that stay gathered
+profile the dense and VLM families' steps split over 'model' as GSPMD
+partitions the reference's (``models.parallel``): a rank holds and
+computes its share of every split leaf, and decode reads and writes its
+slice of the K/V caches' sequence (``cache_defs``' layout) with
+flash-decoding's combine, so its FLOPs, bytes, collectives and peak are
+one rank's.  A cell's JSON names the leaves that stay gathered
 (``tensor_parallel.gathered_leaves``: a block whose heads 'model' does
-not divide, the kv projections where ranks share kv heads).  Other
-families and profiles gather every parameter, so their FLOPs per device
-do not divide by 'model', and a large architecture can exceed a card's
-memory: the dry run reports that as it is (``exceeds_device_memory``),
-and skips nothing for it.
+not divide, the kv projections where ranks share kv heads) and, for
+decode, whether 'model' splits the caches' sequence
+(``tensor_parallel.kv_cache``).  Other families and profiles gather
+every parameter, so their FLOPs per device do not divide by 'model',
+and a large architecture can exceed a card's memory: the dry run
+reports that as it is (``exceeds_device_memory``), and skips nothing
+for it.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3-8b --shape train_4k \\
@@ -60,9 +64,11 @@ import argparse
 import atexit
 import dataclasses
 import json
+import math
 import os
 import time
 import traceback
+from types import SimpleNamespace
 
 import torch
 
@@ -71,7 +77,8 @@ from repro_torch.configs.base import SHAPES, skip_reason
 from repro_torch.launch.hloanalysis import StepCounter
 from repro_torch.launch.mesh import (dp_axes_of, make_mesh_from_devices,
                                      make_production_mesh)
-from repro_torch.launch.train import (_profile, abstract_serve_args,
+from repro_torch.launch.train import (_cache_placements, _profile,
+                                      _seq_split, abstract_serve_args,
                                       abstract_train_args, make_decode_step,
                                       make_prefill_step, make_train_step)
 from repro_torch.models.parallel import gathered_leaves, tp_layout
@@ -230,19 +237,44 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
     """What the step splits over the production mesh's 'model' axis of
     ``model`` ranks: None under a profile that splits no compute; else
     the layout (``tp_layout``; None for a family that keeps the gathered
-    step) and the "model"-tagged leaves computed gathered, with why.
-    Decode keeps the gathered step."""
+    step), the "model"-tagged leaves computed gathered, with why, and
+    for decode where the K/V caches lie: "split on the sequence" where
+    'model' divides it, else "replicated"."""
     if not _profile(cfg, ("data",))[1]:
         return None
     from repro_torch.models import ModelZoo
     defs = ModelZoo(cfg).param_defs()
     decode = shape.kind == "decode"
-    return {"model": model,
-            "layout": None if decode else tp_layout(cfg, model),
-            "gathered_leaves": gathered_leaves(
-                cfg, defs, model,
-                step_gathers="decode keeps the gathered step" if decode
-                else None)}
+    layout = tp_layout(cfg, model)
+    out = {"model": model, "layout": layout,
+           "gathered_leaves": gathered_leaves(cfg, defs, model)}
+    if decode and layout is not None:
+        # the serving steps' own placement of the caches, on the
+        # production mesh's axes and sizes (all that it reads of a mesh)
+        mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                               shape=(256 // model, model))
+        kv = ModelZoo(cfg).cache_defs(shape)["kv"].shape
+        split = _seq_split(_cache_placements(cfg, mesh, "kv", kv), mesh)
+        out["kv_cache"] = ("split on the sequence" if split
+                           else "replicated: 'model' does not divide "
+                           f"the sequence of {shape.seq_len}")
+        # one rank's K/V cache at this length and after one
+        # widen_mesh_caches (one slot more): "model" divides at most one
+        # of the two, and the other lies whole on every "model" rank
+        wide = kv[:3] + (kv[3] + 1,) + kv[4:]
+        out["kv_cache_gb_per_device"] = {
+            "S": _cache_gb(cfg, mesh, kv),
+            "S+1 (after widen_mesh_caches)": _cache_gb(cfg, mesh, wide)}
+    return out
+
+
+def _cache_gb(cfg, mesh, kv) -> float:
+    """GB of one rank's shard of a K/V cache of shape ``kv``, placed as
+    the serving steps place it."""
+    ranks = math.prod(n for n, p in zip(mesh.shape, _cache_placements(
+        cfg, mesh, "kv", kv)) if p.is_shard())
+    size = {"bfloat16": 2, "float8_e4m3fn": 1}[cfg.kv_cache_dtype]
+    return math.prod(kv) * size / ranks / 1e9
 
 
 def _trace_pass(cfg, shape, multi_pod: bool):

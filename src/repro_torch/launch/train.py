@@ -14,9 +14,10 @@ step as explicit collectives, where GSPMD partitions it under
 ``jax.jit``:
 
 1. every rank gathers its parameters from their shards: under the
-   ``tp`` profile, for the dense family, each leaf that "model" splits
-   in compute (``models.parallel.leaf_roles``) only over the other axes
-   — the rank keeps its "model" shard — and every other leaf in full;
+   ``tp`` profile, for the dense and VLM families, each leaf that
+   "model" splits in compute (``models.parallel.leaf_roles``) only over
+   the other axes — the rank keeps its "model" shard — and every other
+   leaf in full;
 2. it takes its slice of the batch — the batch dimension split over the
    profile's batch axes (``_profile``: the mesh's data axes, and "model"
    too for the ``dp`` and ``zero3`` profiles), with
@@ -38,18 +39,30 @@ heads "model" does not divide (smollm-135m's 9 on 16) stays gathered,
 and ``models.parallel.gathered_leaves`` names it.  Other families and
 profiles gather every leaf, and ranks along "model" compute the same
 gradients.  A batch leaf is the global batch, the same on every rank,
-or a DTensor (redistributed to that split).  ``make_prefill_step``
-splits so too, with the logits gathered over the vocabulary and the K/V
-caches over the kv heads; ``make_decode_step`` gathers the parameters.
-Both take each rank's slice of the batch and of the caches over the
-batch axes and return DTensors sharded on their batch dimension over
-those axes (replicated where ``fit_spec_to_shape`` drops them, as for
-``long_500k``'s batch of one).  On a one-rank mesh every step equals the
-plain step bit for bit: the split path's operations on a group of one
-are the plain path's.
+or a DTensor (redistributed to that split).
+
+``make_prefill_step`` and ``make_decode_step`` split so too, with the
+logits gathered over the vocabulary and returned as DTensors sharded on
+the batch over the batch axes (replicated where ``fit_spec_to_shape``
+drops them, as for ``long_500k``'s batch of one).  Their K/V caches lie
+as the reference lays them out (``cache_defs``: the batch over the
+batch axes, the sequence over "model" where it divides S, else
+replicated over "model"; ``_cache_placements``): decode takes and
+returns each rank's shard, writing slot S-1 on the rank that holds it
+and attending with flash-decoding's combine over the ranks' slices, and
+moves no cache; prefill hands each rank its slice of every kv head
+(``_prefill_kv_shards``: an all-to-all where "model" splits the heads);
+``widen_mesh_caches`` appends decode's slot and re-places the caches
+(an all-gather over "model" where the sequence was split).  A cache
+placed otherwise raises.  Other families and profiles gather the
+parameters and take and return the caches as each rank's slice of the
+batch.  On a one-rank mesh every step equals the plain step bit for
+bit: the split path's operations on a group of one are the plain
+path's.
 
 The split runs wherever the mesh runs: gloo worlds of CPU processes
-(``tests/test_torch_tp_steps.py``) and NCCL on cards (``chip_smoke.py``
+(``tests/test_torch_tp_steps.py``, ``tests/test_torch_tp_decode.py``,
+``tests/test_torch_tp_vlm.py``) and NCCL on cards (``chip_smoke.py``
 phase 14, one rank).
 
 ``abstract_train_args`` / ``abstract_serve_args`` build a step's
@@ -58,6 +71,7 @@ arguments as fake tensors (fake DTensors on a mesh) for the dry run
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional, Tuple
 
@@ -78,7 +92,8 @@ from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      adamw_update)
 
 __all__ = ["use_fsdp", "value_and_grad", "make_train_step",
-           "make_prefill_step", "make_decode_step", "abstract_train_args",
+           "make_prefill_step", "make_decode_step", "widen_mesh_caches",
+           "abstract_train_args",
            "abstract_serve_args", "init_train_state", "state_shardings",
            "lr_schedule"]
 
@@ -325,54 +340,164 @@ def _cache_batch_dims(cfg: ArchConfig):
     return tree_map(lambda d: d.spec.index("dp"), cache_defs(cfg, 1, 1))
 
 
-def _gather_kv_heads(c, tp: TensorParallel, cfg: ArchConfig):
-    """A prefill K/V cache (kv heads on dim -2) whole, from each rank's
-    kv heads: concatenated in rank order where "model" splits them, each
-    head from the first rank that computed it where ranks share one
-    (``"kv_slice"``)."""
+_KV_SEQ = 3    # a K/V cache's sequence dimension: (L, 2, B, S, Kh, hd)
+
+
+def _cache_placements(cfg: ArchConfig, mesh, key: str, shape) -> tuple:
+    """Where the decode-cache leaf ``key`` ("kv", "shared_kv") of global
+    ``shape`` lies on ``mesh``: ``cache_defs``' spec under the profile,
+    fit to the shape (``abstract_serve_args``' placement, the
+    reference's): the batch over the batch axes, the sequence over
+    "model" where it divides S, else replicated over "model"."""
+    axes, use_tp, _ = _profile(cfg, dp_axes_of(mesh))
+    spec = resolve_spec(cache_defs(cfg, 1, 1)[key].spec, use_fsdp=False,
+                        dp_axes=axes, use_tp=use_tp)
+    return spec_placements(fit_spec_to_shape(tuple(shape), spec, mesh), mesh)
+
+
+def _seq_split(placements, mesh) -> bool:
+    m = mesh.mesh_dim_names.index("model")
+    return placements[m].is_shard(_KV_SEQ)
+
+
+def _kv_cache_shards(cfg: ArchConfig, mesh, caches):
+    """(this rank's shard of every decode cache, the slot count S where
+    "model" splits the caches' sequence, else None) for the split
+    decode.  A cache placed otherwise than :func:`_cache_placements`
+    says raises: the split decode moves no cache."""
+    shards, seq = {}, None
+    for key, c in caches.items():
+        want = _cache_placements(cfg, mesh, key, c.shape)
+        if not _is_dtensor(c):
+            shards[key] = _local_shard(c, mesh, want)
+        elif tuple(c.placements) != tuple(want):
+            raise ValueError(
+                f"decode cache {key!r} of shape {tuple(c.shape)} is placed as "
+                f"{tuple(c.placements)}; the split decode takes it as "
+                f"{tuple(want)} (cache_defs + fit_spec_to_shape)")
+        else:
+            shards[key] = c.to_local()
+        if _seq_split(want, mesh):
+            seq = c.shape[_KV_SEQ]
+    return shards, seq
+
+
+def _prefill_kv_shards(c, tp: TensorParallel, cfg: ArchConfig,
+                       seq_split: bool):
+    """A prefill K/V cache, computed with this rank's kv heads (all of
+    them where attention is gathered), as this rank's shard in the
+    decode layout: every kv head, and the rank's slice of the sequence
+    where ``seq_split``.  Heads split, sequence split: one all-to-all
+    (rank j receives slice j of every rank's heads); heads split,
+    sequence whole: one all-gather; heads whole: a local slice.  No rank
+    holds the whole cache but where the layout replicates it."""
     import torch.distributed as dist
-    from repro_torch.models.parallel import kv_head_range
-    parts = [torch.empty_like(c) for _ in range(tp.size)]
-    dist.all_gather(parts, c.contiguous(), group=tp.group)
-    if tp.attn == "split":
-        return torch.cat(parts, dim=-2)
-    first = {}
-    for r in range(tp.size):
-        first.setdefault(kv_head_range(cfg, tp.size, r)[0], r)
-    return torch.cat([parts[first[j]] for j in range(cfg.num_kv_heads)],
-                     dim=-2)
+    from repro_torch.models.parallel import gather_kv_heads, join_kv_heads
+    if tp.size == 1:
+        return c
+    if tp.attn == "gathered":
+        return (c.chunk(tp.size, _KV_SEQ)[tp.rank].contiguous() if seq_split
+                else c)
+    if not seq_split:
+        return gather_kv_heads(c, tp, cfg)
+    send = [t.contiguous() for t in c.chunk(tp.size, _KV_SEQ)]
+    parts = [torch.empty_like(t) for t in send]
+    dist.all_to_all(parts, send, group=tp.group)
+    return join_kv_heads(parts, tp, cfg)
+
+
+def _kv_global(t, cfg: ArchConfig, mesh, key: str, full_batch: int,
+               seq: int):
+    """The DTensor of batch ``full_batch`` and ``seq`` slots, placed by
+    :func:`_cache_placements`, whose rank-local shard is ``t``."""
+    from torch.distributed.tensor import DTensor
+    shape = list(t.shape)
+    shape[2], shape[_KV_SEQ] = full_batch, seq
+    return DTensor.from_local(t, mesh,
+                              _cache_placements(cfg, mesh, key, shape),
+                              run_check=False)
 
 
 def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
-    rank's slice of the batch and the caches, the outputs as DTensors
-    sharded on their batch dimension.  Prefill splits over "model" as
-    the train step does (``_tensor_parallel``); decode gathers the
-    parameters."""
+    rank's slice of the batch, the logits as a DTensor sharded on the
+    batch.  Under the ``tp`` profile, for the dense and VLM families,
+    both split over "model" as the train step does (``_tensor_parallel``)
+    and the K/V caches go in and out placed as ``cache_defs`` +
+    ``fit_spec_to_shape`` say: decode reads and writes each rank's shard
+    and moves no cache; prefill turns its per-rank kv heads into that
+    layout (:func:`_prefill_kv_shards`).  Otherwise the parameters are
+    gathered and the caches go in and out as each rank's slice of the
+    batch."""
     axes = _batch_axes(cfg, mesh)
     dims = _cache_batch_dims(cfg)
-    tp, roles = (_tensor_parallel(cfg, mesh, params) if caches is None
-                 else (None, None))
+    tp, roles = _tensor_parallel(cfg, mesh, params)
     if roles is None:
         roles = tree_map(lambda p: None, params)
     work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
     b = next(iter(batch.values())).shape[0]
     local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
-    if caches is not None:
-        logits, new_caches = call(work, tree_map(
-            lambda c, d: _batch_local(c, d, axes, mesh), caches, dims),
-            local_batch)
-    elif tp is None:
-        logits, new_caches = call(work, local_batch)
-    else:
+    if tp is None:
+        if caches is None:
+            logits, new_caches = call(work, local_batch)
+        else:
+            logits, new_caches = call(work, tree_map(
+                lambda c, d: _batch_local(c, d, axes, mesh), caches, dims),
+                local_batch)
+        del work
+        return (_batch_global(logits, 0, axes, mesh, b),
+                tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
+                         new_caches, dims))
+    if caches is None:
+        seq = batch["tokens"].shape[1]
         logits, new_caches = call(work, local_batch, tp)
-        if tp.attn != "gathered" and tp.size > 1:
-            new_caches = tree_map(lambda c: _gather_kv_heads(c, tp, cfg),
-                                  new_caches)
+        split = _seq_split(_cache_placements(
+            cfg, mesh, "kv", (cfg.num_layers, 2, b, seq, cfg.num_kv_heads,
+                              cfg.head_dim)), mesh)
+        new_caches = {k: _prefill_kv_shards(c, tp, cfg, split)
+                      for k, c in new_caches.items()}
+    else:
+        shards, kv_seq = _kv_cache_shards(cfg, mesh, caches)
+        seq = next(iter(caches.values())).shape[_KV_SEQ]
+        logits, new_caches = call(work, shards, local_batch,
+                                  dataclasses.replace(tp, kv_seq=kv_seq))
     del work
     return (_batch_global(logits, 0, axes, mesh, b),
-            tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
-                     new_caches, dims))
+            {k: _kv_global(c, cfg, mesh, k, b, seq)
+             for k, c in new_caches.items()})
+
+
+def widen_mesh_caches(cfg: ArchConfig, caches: dict) -> dict:
+    """``models.widen_caches`` for caches on a mesh (DTensors, as the
+    serving steps return them): one empty slot appended to every
+    self-attention K/V cache, the result placed by
+    :func:`_cache_placements` for its new length.  What moves: where
+    "model" splits the sequence, the cache is first gathered over
+    "model" (an all-gather: every rank then holds its batch slice of
+    the whole cache, and the pad makes a second copy of it; padding a
+    split dimension would misplace the slot), then split again by a
+    local slice where "model" divides the new length.  After a one-slot
+    widen of a split cache it does not, and the cache stays replicated
+    over "model", as the reference's ``in_shardings`` place it: so a
+    chain of decode steps holds each rank's batch slice of the whole
+    cache on every step but those whose length "model" divides."""
+    from torch.distributed.tensor import DTensor, Replicate
+    out = dict(caches)
+    for key in ("kv", "shared_kv"):
+        if key not in out:
+            continue
+        c = out[key]
+        mesh = c.device_mesh
+        whole = [Replicate() if p.is_shard(_KV_SEQ) else p
+                 for p in c.placements]
+        local = torch.nn.functional.pad(
+            c.redistribute(mesh, whole).to_local(), (0, 0, 0, 0, 0, 1))
+        shape = list(c.shape)
+        shape[_KV_SEQ] += 1
+        out[key] = DTensor.from_local(local, mesh, whole,
+                                      run_check=False).redistribute(
+            mesh, _cache_placements(cfg, mesh, key, shape))
+    return out
 
 
 def make_prefill_step(cfg: ArchConfig):

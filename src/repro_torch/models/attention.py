@@ -1,5 +1,6 @@
 """GQA attention: full, query-chunked, and decode paths (port of
-``repro.models.attention``).
+``repro.models.attention``), and decode over a cache whose slots are
+split across the "model" group (:func:`decode_attention_split`).
 
 All shapes are (batch, seq, heads, head_dim).  GQA reshapes the queries
 into (kv_head, group) and never repeats K/V.  Scores and the softmax are
@@ -15,7 +16,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["attention", "chunked_attention", "decode_attention"]
+from .parallel import model_all_reduce
+
+__all__ = ["attention", "chunked_attention", "decode_attention",
+           "decode_attention_split"]
 
 NEG_INF = -1e30
 
@@ -94,3 +98,41 @@ def decode_attention(q, k_cache, v_cache, valid_len: Optional[int] = None):
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return _gqa_out(probs, v_cache)
+
+
+def decode_attention_split(q, k_shard, v_shard, start: int, tp,
+                           valid_len: Optional[int] = None):
+    """:func:`decode_attention` over a cache whose S slots lie split
+    across the "model" group ``tp``: this rank holds slots
+    [start, start + S_r) of every kv head (``k_shard`` / ``v_shard``:
+    (B, S_r, Kh, D), S_r ≥ 1) and the whole q (B, 1, H, D);
+    ``valid_len`` masks global positions.  Flash-decoding's combine:
+    each rank takes its max m_r of the f32 scores, l_r = Σ exp(s − m_r)
+    and o_r = Σ exp(s − m_r)·v; then M = max over ranks of m_r,
+    L = Σ l_r·exp(m_r − M), O = Σ o_r·exp(m_r − M) (three all-reduces,
+    no atomics), and the output is O / L in q's dtype.  A group of one
+    issues no collective and is :func:`decode_attention` itself.
+
+    Rounding against the plain softmax: there each probability is
+    divided by the row's sum before its cast to q's dtype and the
+    product with V is rounded once to q's dtype; here the unnormalised
+    exp(s − m_r) (relative to this rank's max) is cast to q's dtype,
+    each rank's product is rounded to q's dtype, the partials are
+    rescaled and summed in f32, and the division by L and the cast to
+    q's dtype come last."""
+    if tp.size == 1:
+        return decode_attention(q, k_shard, v_shard, valid_len)
+    scores = _gqa_scores(q, k_shard)   # (B,Kh,G,1,S_r)
+    if valid_len is not None:
+        pos = torch.arange(start, start + k_shard.shape[1], device=q.device)
+        scores = torch.where(pos < valid_len, scores, NEG_INF)
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    big_m = model_all_reduce(m, tp, "max")
+    e = torch.exp(scores - m)
+    scale = torch.exp(m - big_m)       # (B,Kh,G,1,1)
+    big_l = model_all_reduce(e.sum(-1, keepdim=True) * scale, tp)
+    part = _gqa_out(e.to(q.dtype), v_shard)           # (B,1,H,D)
+    b, kh, g = scale.shape[:3]
+    per_head = lambda t: t.reshape(b, kh * g)[:, None, :, None]
+    big_o = model_all_reduce(part.float() * per_head(scale), tp)
+    return (big_o / per_head(big_l)).to(q.dtype)

@@ -91,11 +91,14 @@ class ModelZoo:
                                        mode="prefill", tp=tp)
         return self._last_logits(params, hidden, tp), caches
 
-    def decode(self, params, caches, batch):
+    def decode(self, params, caches, batch, tp=None):
         """One token per sequence against ``caches`` (widened by the
-        caller): (logits (B, 1, vocab) f32, new caches)."""
-        hidden, new_caches = lm_decode_step(params, caches, batch, self.cfg)
-        return self._last_logits(params, hidden), new_caches
+        caller): (logits (B, 1, vocab) f32, new caches).  Under ``tp``
+        the logits are whole on every rank and, with ``tp.kv_seq``, the
+        K/V caches this rank's slice of their sequence."""
+        hidden, new_caches = lm_decode_step(params, caches, batch, self.cfg,
+                                            tp)
+        return self._last_logits(params, hidden, tp), new_caches
 
     def _last_logits(self, params, hidden, tp=None):
         cfg = self.cfg

@@ -1,12 +1,13 @@
 """Tensor-parallel compute over the "model" mesh axis (the port's
 counterpart of GSPMD partitioning the reference's jitted step over the
-leaves that ``pspec_tree`` tags "model").
+leaves that ``pspec_tree`` tags "model", and its decode over the K/V
+caches that ``cache_defs`` splits on the sequence).
 
-The dense family's layers take their "model"-tagged weights as each
-rank's shard and add the collectives that make the result the plain
-one, on the "model" process group (explicit ``torch.distributed`` calls;
-DTensor has no rules for attention's einsums, the checkpoints or the
-chunked loss):
+The dense and VLM families' layers (the VLM's blocks are the dense
+blocks) take their "model"-tagged weights as each rank's shard and add
+the collectives that make the result the plain one, on the "model"
+process group (explicit ``torch.distributed`` calls; DTensor has no
+rules for attention's einsums, the checkpoints or the chunked loss):
 
 * attention: ``wq`` / ``wk`` / ``wv`` column-parallel by whole heads,
   each rank attending over its own heads, ``wo`` row-parallel and one
@@ -23,7 +24,16 @@ chunked loss):
   cross-entropy (the max and the sum of exponentials all-reduced, the
   gold logit from the rank that owns it) and logits gathered over the
   vocabulary; tied (``embed.T``, split on d), row-parallel with the
-  logits all-reduced.
+  logits all-reduced;
+* decode (no backward): each rank holds its slice of every K/V cache's
+  S slots (``TensorParallel.kv_seq``), computes the new token's q, k
+  and v for every head (column-parallel where attention splits, then an
+  all-gather along the heads: :func:`gather_from_model`,
+  :func:`gather_kv_heads`), and attends over its slots with
+  flash-decoding's combine (``attention.decode_attention_split``: the
+  max, the sum of exponentials and the partial outputs all-reduced by
+  :func:`model_all_reduce`); only the rank that holds slot S-1 writes
+  it.  ``wo``, the MLP, the embedding and the head split as above.
 
 The collectives carry gradients in pairs (Megatron-LM's f and g):
 :func:`copy_to_model` is the identity forward and an all-reduce
@@ -55,6 +65,7 @@ from repro_torch._tree import tree_flatten_with_path, tree_unflatten
 
 __all__ = ["TensorParallel", "tp_layout", "leaf_roles", "gathered_leaves",
            "copy_to_model", "reduce_from_model", "gather_from_model",
+           "model_all_reduce", "gather_kv_heads", "join_kv_heads",
            "vocab_logsumexp", "vocab_gold", "kv_head_range"]
 
 
@@ -64,7 +75,11 @@ class TensorParallel:
 
     ``attn``: "split", "kv_slice" or "gathered"; ``mlp`` / ``embed``:
     split or not; ``head``: "vocab" (untied, split on the vocabulary),
-    "rows" (tied ``embed.T``, split on d) or None (gathered)."""
+    "rows" (tied ``embed.T``, split on d) or None (gathered).
+    ``kv_seq`` (decode only): the slot count S of the K/V caches where
+    each rank holds its even share of the S slots, rank r slots
+    [r·S/size, (r+1)·S/size); None where every rank holds whole
+    caches."""
     group: Any
     size: int
     rank: int
@@ -72,13 +87,14 @@ class TensorParallel:
     mlp: bool
     embed: bool
     head: Optional[str]
+    kv_seq: Optional[int] = None
 
 
 def tp_layout(cfg, size: int) -> Optional[dict]:
     """Which blocks of ``cfg`` split over a "model" group of ``size``
     ranks; None where the family keeps the gathered step (every family
-    but dense, in this slice)."""
-    if cfg.family != "dense":
+    but dense and VLM, whose blocks are the dense blocks)."""
+    if cfg.family not in ("dense", "vlm"):
         return None
     h, kh = cfg.num_heads, cfg.num_kv_heads
     attn = "gathered"
@@ -138,13 +154,13 @@ def leaf_roles(cfg, defs, size: int, rank: int) -> Optional[Any]:
                            for p, _ in flat])
 
 
-def gathered_leaves(cfg, defs, size: int,
-                    step_gathers: Optional[str] = None) -> List[dict]:
+def gathered_leaves(cfg, defs, size: int) -> List[dict]:
     """The leaves that ``pspec_tree`` tags "model" but that a split step
     computes gathered (whole, or sliced to the kv heads a rank reads),
-    each with the reason: what the dry run names.  ``step_gathers``: the
-    reason a step gathers every leaf (decode, in this slice)."""
-    layout = None if step_gathers else tp_layout(cfg, size)
+    each with the reason: what the dry run names.  Decode computes the
+    new token's projections with them so, and still attends over each
+    rank's slice of the caches' sequence."""
+    layout = tp_layout(cfg, size)
     out = []
     for path, d in tree_flatten_with_path(defs):
         if "model" not in d.spec:
@@ -153,9 +169,7 @@ def gathered_leaves(cfg, defs, size: int,
                 else ("gathered",))
         if role[0] == "split":
             continue
-        if step_gathers:
-            why = step_gathers
-        elif layout is None:
+        if layout is None:
             why = f"family {cfg.family!r} keeps the gathered step"
         elif path[-2:-1] == ("attn",) and role[0] == "slice":
             why = (f"{cfg.num_kv_heads} kv heads on {size} ranks: each rank "
@@ -244,6 +258,47 @@ def gather_from_model(x: torch.Tensor, dim: int,
     if tp.size == 1:
         return x
     return _GatherFromModel.apply(x, dim, tp.group, tp.size, tp.rank)
+
+
+def model_all_reduce(x: torch.Tensor, tp: TensorParallel,
+                     op: str = "sum") -> torch.Tensor:
+    """``x`` all-reduced over the group by ``op`` ("sum" or "max"), with
+    no gradient (decode's combine); ``x`` itself on a group of one."""
+    import torch.distributed as dist
+    if tp.size == 1:
+        return x
+    return _all_reduce(x, tp.group, {"sum": dist.ReduceOp.SUM,
+                                     "max": dist.ReduceOp.MAX}[op])
+
+
+def join_kv_heads(parts, tp: TensorParallel, cfg, dim: int = -2):
+    """Every kv head, in order, from the ranks' ``parts`` (rank order),
+    each holding the kv heads its rank computed along ``dim``:
+    concatenated where "model" splits them (``"split"``), each head
+    taken from the first rank that computed it where ranks share one
+    (``"kv_slice"``: each rank computes the one kv head its q heads
+    read)."""
+    if tp.attn == "split":
+        return torch.cat(parts, dim=dim)
+    first = {}
+    for r in range(tp.size):
+        first.setdefault(kv_head_range(cfg, tp.size, r)[0], r)
+    return torch.cat([parts[first[j]] for j in range(cfg.num_kv_heads)],
+                     dim=dim)
+
+
+def gather_kv_heads(x: torch.Tensor, tp: TensorParallel, cfg,
+                    dim: int = -2) -> torch.Tensor:
+    """Every kv head of ``x`` (this rank's kv heads along ``dim``) on
+    every rank: one all-gather, then :func:`join_kv_heads`.  No
+    gradient."""
+    import torch.distributed as dist
+    if tp.size == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(tp.size)]
+    dist.all_gather(parts, x, group=tp.group)
+    return join_kv_heads(parts, tp, cfg, dim)
 
 
 class _VocabLogSumExp(torch.autograd.Function):

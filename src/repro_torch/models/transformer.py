@@ -18,6 +18,11 @@ After a prefill of S tokens the caller widens the cache by one slot per
 generated token (as ``examples/serve_decode.py`` does).  With
 ``cfg.kv_cache_dtype="float8_e4m3fn"`` the cache is stored in f8,
 converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
+
+Under tensor-parallel compute (``tp``, ``models.parallel``; the dense
+and VLM families) the forward paths take each rank's shards of the
+split leaves; decode takes each rank's slice of the caches' sequence
+where ``tp.kv_seq`` says so, and its batch's slice on a mesh.
 """
 from __future__ import annotations
 
@@ -28,12 +33,14 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from .attention import chunked_attention, decode_attention
+from .attention import (chunked_attention, decode_attention,
+                        decode_attention_split)
 from .layers import ParamDef, rmsnorm, rope, stack_defs, swiglu
 from .mamba2 import (mamba_apply, mamba_cache_defs, mamba_decode_step,
                      mamba_defs)
 from .moe import moe_apply, moe_defs
-from .parallel import copy_to_model, gather_from_model, reduce_from_model
+from .parallel import (copy_to_model, gather_from_model, gather_kv_heads,
+                       reduce_from_model)
 
 __all__ = ["attn_defs", "mlp_defs", "block_defs", "model_defs", "lm_forward",
            "lm_decode_step", "cache_defs", "hidden_for_tokens",
@@ -134,24 +141,46 @@ def attn_apply(params, x, cfg, *, causal: bool = True, pos0: int = 0,
     return out, (k, v)
 
 
-def attn_decode_apply(params, x, cfg, kv_cache, *, use_rope: bool = True):
+def attn_decode_apply(params, x, cfg, kv_cache, *, use_rope: bool = True,
+                      tp=None):
     """One-token decode. kv_cache: (2, B, S, Kh, hd); writes slot S-1 of a
-    copy (the caller's cache is left as it was)."""
+    copy (the caller's cache is left as it was).
+
+    Under ``tp`` with a split attention block the weights are this
+    rank's heads: q, k and v are computed column-parallel and gathered
+    along the heads, and ``wo`` (this rank's rows) takes this rank's
+    slice of the whole output, all-reduced over the group.  With
+    ``tp.kv_seq`` the cache is this rank's slice of the S = ``kv_seq``
+    slots: only the rank that holds slot S-1 writes it, and attention
+    is :func:`~repro_torch.models.attention.decode_attention_split`."""
     b, s_new, _ = x.shape
     if s_new != 1:
         raise ValueError(f"decode takes one token per sequence, got {s_new}")
     q, k, v = _qkv(params, x, cfg)
-    slot = kv_cache.shape[2] - 1
+    split = tp is not None and tp.attn != "gathered"
+    if split:
+        q = gather_from_model(q, 2, tp)
+        k, v = gather_kv_heads(k, tp, cfg), gather_kv_heads(v, tp, cfg)
+    held = kv_cache.shape[2]
+    seq_split = tp is not None and tp.kv_seq is not None
+    slot = (tp.kv_seq if seq_split else held) - 1
+    start = tp.rank * held if seq_split else 0
     if use_rope:
         positions = torch.full((1, 1), slot, device=x.device)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    new_kv = kv_cache.clone()
-    new_kv[0, :, slot] = to_kv_dtype(k[:, 0], kv_cache.dtype)
-    new_kv[1, :, slot] = to_kv_dtype(v[:, 0], kv_cache.dtype)
-    out = decode_attention(q, new_kv[0].to(x.dtype), new_kv[1].to(x.dtype))
-    out = out.reshape(b, 1, -1) @ params["wo"].to(x.dtype)
-    return out, new_kv
+    new_kv = kv_cache.clone()   # this rank's slots only, under kv_seq
+    if start <= slot < start + held:
+        new_kv[0, :, slot - start] = to_kv_dtype(k[:, 0], kv_cache.dtype)
+        new_kv[1, :, slot - start] = to_kv_dtype(v[:, 0], kv_cache.dtype)
+    k_all, v_all = new_kv[0].to(x.dtype), new_kv[1].to(x.dtype)
+    out = (decode_attention_split(q, k_all, v_all, start, tp) if seq_split
+           else decode_attention(q, k_all, v_all)).reshape(b, 1, -1)
+    if split:
+        n = params["wo"].shape[0]
+        out = out.narrow(-1, tp.rank * n, n) @ params["wo"].to(x.dtype)
+        return reduce_from_model(out, tp), new_kv
+    return out @ params["wo"].to(x.dtype), new_kv
 
 
 def cross_attn_apply(params, x, cfg, memory=None, kv_cache=None):
@@ -228,13 +257,14 @@ def shared_attn_defs(cfg) -> dict:
 
 def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None):
     """Apply one layer (``mode`` "train", "prefill" or "decode"; ``tp``
-    the dense family's tensor-parallel compute in train and prefill).
-    Returns (x, new cache or None in train mode, aux)."""
+    the dense and VLM families' tensor-parallel compute).  Returns (x,
+    new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         h = rmsnorm(x, params["ln1"])
         if mode == "decode":
-            a, new_kv = attn_decode_apply(params["attn"], h, cfg, kv_cache)
+            a, new_kv = attn_decode_apply(params["attn"], h, cfg, kv_cache,
+                                          tp=tp)
         else:
             a, kv = attn_apply(params["attn"], h, cfg, causal=True, tp=tp)
             new_kv = torch.stack(kv) if mode == "prefill" else None
@@ -404,13 +434,13 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
     ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense
-    family only): the parameters are this rank's shards of the split
-    leaves, the hidden states the full ones, and prefill's K/V caches
-    hold this rank's kv heads.
+    and VLM families): the parameters are this rank's shards of the
+    split leaves, the hidden states the full ones (the VLM's patch
+    embeddings overwrite the first positions after the embedding's
+    gather, on every rank), and prefill's K/V caches hold this rank's kv
+    heads.
     """
-    if tp is not None and cfg.family != "dense":
-        raise ValueError(f"tensor-parallel compute covers the dense family, "
-                         f"not {cfg.family!r}")
+    _check_tp(tp, cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"lm_forward: mode={mode!r}")
     if cfg.family == "encdec":
@@ -502,13 +532,24 @@ def _encdec_forward(params, inputs, cfg, mode):
 
 # ------------------------------------------------------------------- decode
 
-def lm_decode_step(params, caches, inputs, cfg):
-    """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches)."""
-    x = hidden_for_tokens(params, inputs["tokens"], cfg)
+def _check_tp(tp, cfg):
+    if tp is not None and cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"tensor-parallel compute covers the dense and VLM "
+                         f"families, not {cfg.family!r}")
+
+
+def lm_decode_step(params, caches, inputs, cfg, tp=None):
+    """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches).
+
+    ``tp`` (dense and VLM families): the parameters are this rank's
+    shards of the split leaves and, with ``tp.kv_seq``, the K/V caches
+    this rank's slice of their sequence, returned so."""
+    _check_tp(tp, cfg)
+    x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
 
     if cfg.family in ("dense", "vlm", "moe"):
         x, new_kv, _ = _run_layers(params["layers"], x, cfg, "decode",
-                                   caches["kv"])
+                                   caches["kv"], tp=tp)
         return rmsnorm(x, params["final_norm"]), {"kv": new_kv}
 
     if cfg.family == "ssm":

@@ -8,10 +8,13 @@ package where the reference has a counterpart, on the CPU.
     data axes, + the norm's over "model", + the layers' and the
     vocabulary-parallel loss's (forward, recompute, backward), one
     all-gather (the embedding along d; no split leaf is gathered); a
-    prefill cell (two all-reduces per layer; the embedding, the logits
-    and the K/V cache gathered) and a decode cell (the gathered step:
-    the parameters' sharded mesh dimensions and one per cache leaf split
-    over "model"); nothing unmatched;
+    prefill cell (two all-reduces per layer; the embedding and the logits
+    gathered; one all-to-all that hands each rank its slice of the K/V
+    caches' sequence with every kv head) and a decode cell (the split
+    decode on caches split on the sequence over "model": per layer q, k
+    and v gathered along the heads and five all-reduces — the combine's
+    three, ``wo``'s and the MLP's — and the embedding and the logits
+    gathered; no parameter and no cache gathered); nothing unmatched;
   * the L1/L2 composition (``_compose``) equals a direct full-depth
     trace exactly for reduced dense (split over "model" and not), moe,
     ssm and encdec configs;
@@ -100,17 +103,18 @@ def test_mini_dryrun_on_a_fake_8_rank_world():
     assert tr["collectives"]["all-gather"]["count"] == 1
     pf = out["prefill"]
     assert pf["collectives"]["all-reduce"]["count"] == 2 * n_layers
-    assert pf["collectives"]["all-gather"]["count"] == 3
+    assert pf["collectives"]["all-gather"]["count"] == 2
+    assert pf["collectives"]["all-to-all"]["count"] == 1
     dc = out["decode"]
     assert out["cache_leaves_on_model"] > 0
-    assert dc["collectives"]["all-reduce"]["count"] == 0
-    assert dc["collectives"]["all-gather"]["count"] == \
-        gathers + out["cache_leaves_on_model"]
+    assert dc["collectives"]["all-reduce"]["count"] == 5 * n_layers
+    assert dc["collectives"]["all-gather"]["count"] == 3 * n_layers + 2
     for kind in ("train", "prefill", "decode"):
         r = out[kind]
         assert r["unmatched_collectives"] == [], kind
         for k in ("reduce-scatter", "all-to-all", "collective-permute"):
-            assert r["collectives"][k]["count"] == 0, (kind, k)
+            if (kind, k) != ("prefill", "all-to-all"):
+                assert r["collectives"][k]["count"] == 0, (kind, k)
         mem = r["memory"]
         assert mem["argument_size_in_bytes"] > 0, kind
         assert mem["temp_size_in_bytes"] > 0, kind

@@ -57,13 +57,16 @@ at the CPU training tests' bars); a checkpoint written on the CPU
 restores on the card bit for bit, and the synthetic stream gives the
 same tokens on both.  On a one-rank NCCL group (phase 14) the mesh step
 equals the plain step bit for bit and a save from the mesh restores
-through ``remesh`` bit for bit; ``compress`` and ``ef_roundtrip`` on the
-card equal the CPU's bit for bit.  The launch analysis (phase 15): a
+through ``remesh`` bit for bit; decode's combine across two gloo ranks
+on the card lies within the CPU test's bars of ``decode_attention``;
+``compress`` and ``ef_roundtrip`` on the card equal the CPU's bit for
+bit.  The launch analysis (phase 15): a
 reduced train step on the card counts the FLOPs of its fake-tensor trace
 exactly, and a reduced cell of the dry run on a fake 8-rank world gives
 the same dict on fake CUDA tensors as on fake CPU tensors.
 """
 import importlib.util
+import json
 from pathlib import Path
 
 import numpy as np
@@ -742,6 +745,21 @@ def test_mesh_step_on_one_rank_nccl_equals_plain_step(cuda):
         dist.destroy_process_group()
 
 
+def test_decode_combine_on_the_card_across_two_ranks(cuda, tmp_path):
+    """``attention.decode_attention_split`` on CUDA tensors across two
+    ranks of a gloo world on the one card (gloo all-reduces CUDA tensors
+    through the host): each rank's max, Σexp and partial output on the
+    card, the three all-reduces, O / L, against ``decode_attention`` on
+    the card, with and without ``valid_len`` (a shard of only masked
+    slots among them), within the CPU test's bars."""
+    from test_torch_tp_decode import COMBINE, check_combine
+    from torch_gloo import assert_ranks_ok, run_ranks
+    res = run_ranks("DEVICE = 'cuda'\n" + COMBINE, 2, tmp_path)
+    assert_ranks_ok(res)
+    check_combine(json.loads((tmp_path / "combine.json").read_text()),
+                  "cuda")
+
+
 def test_compression_on_the_card_equals_the_cpu(cuda):
     """``compress`` and ``ef_roundtrip`` on the card bit for bit with the
     CPU over ten decades of scale, ties of the int8 grid included."""
@@ -795,35 +813,50 @@ def test_fake_cuda_dry_run_equals_the_cpu_dry_run(cuda):
     CUDA tensors gives the dict it gives with fake CPU tensors, but for
     the trace's seconds and the temporaries' bytes: ``MemTracker`` rounds
     every CUDA storage up to the caching allocator's 512-byte blocks, so
-    the CUDA peak is a little larger (by 0.3 % at this reduced size on an
-    H100)."""
+    the CUDA peak is a little larger, by an amount that grows with the
+    number of small storages live at the peak, not with their bytes (the
+    split decode's are small: 2.6 % at this size).  With the CPU trace's
+    storages rounded the same way the temporaries are equal."""
     import json
     from torch_gloo import run_fake
     proc = run_fake("""
-        import json
+        import json, math
+        import torch.distributed._tools.mem_tracker as mem_tracker
         from repro_torch.configs import get_config
         from repro_torch.configs.base import ShapeSpec
         from repro_torch.launch import dryrun, make_mesh_from_devices
         dist.init_process_group("fake", store=FakeStore(), rank=0,
                                 world_size=8)
         cfg = get_config("internlm2-1.8b").reduced()
+        block = mem_tracker._PYTORCH_MIN_ALLOCATE
+
+
+        def rounded(self):
+            return math.ceil(self.size * self.element_size / block) * block
+
+
         out = {}
-        for dev in ("cuda", "cpu"):
+        for name, dev in (("cuda", "cuda"), ("cpu", "cpu"),
+                          ("cpu_rounded", "cpu")):
+            if name == "cpu_rounded":
+                mem_tracker._WeakRefInfo._calculate_mem_consumed = rounded
             mesh = make_mesh_from_devices(range(8), (2, 2, 2),
                                           ("pod", "data", "model"),
                                           device_type=dev)
             for kind in ("train", "decode"):
                 r = dryrun._trace(cfg, ShapeSpec(kind, kind, 64, 8), mesh)
                 r.pop("compile_s")
-                out[f"{dev}/{kind}"] = r
+                out[f"{name}/{kind}"] = r
         print(json.dumps(out))
     """, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = json.loads(proc.stdout)
     for kind in ("train", "decode"):
-        on_card, on_cpu = out[f"cuda/{kind}"], out[f"cpu/{kind}"]
+        on_card, on_cpu, rounded = (out[f"{d}/{kind}"] for d in
+                                    ("cuda", "cpu", "cpu_rounded"))
         temp = [r["memory"].pop("temp_size_in_bytes")
-                for r in (on_card, on_cpu)]
+                for r in (on_card, on_cpu, rounded)]
         assert on_card == on_cpu, kind
         assert on_card["flops"] > 0
-        assert 0 <= temp[0] - temp[1] <= 0.01 * temp[1], (kind, temp)
+        assert 0 <= temp[0] - temp[1], (kind, temp)
+        assert temp[0] == temp[2], (kind, temp)
