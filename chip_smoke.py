@@ -276,7 +276,11 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               train step (2 × 2,048 tokens, patch embeddings over the
               first 1,024 positions), the split prefill and 2 split
               decode steps against the plain calls, bit for bit, with
-              their ms.  Then a save from the mesh,
+              their ms; and so qwen2-moe-a2.7b (the MoE family: 64
+              padded experts, top-4, a shared MLP of 5,632) at its full
+              width and 2 layers, 2 × 1,024 tokens (one group of 2,048),
+              routing, experts and shared MLP on the split, with the
+              train step's peak memory.  Then a save from the mesh,
               ``plan_mesh(1, 1)``, a restore
               through ``remesh`` and one more step, its loss bit for bit
               with the uninterrupted run's; ``ef_roundtrip`` and
@@ -284,8 +288,8 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               for bit with the same on the CPU (a gloo group); a one-stage
               ``pipeline_apply`` of 8 microbatches of ``tanh(h @ w)`` at
               d 576, bit for bit with the chain, and ``plan``'s makespan
-              and bubble for ring(4).  The group is destroyed and the
-              checkpoints removed.
+              and bubble for ring(4).  The group is destroyed, the
+              checkpoints removed and the allocator's cache emptied.
 15. launch  — the launch analysis (``launch.hloanalysis``,
               ``launch.memmodel``, ``launch.dryrun``; no kernel): (a) one
               real smollm-135m ``make_train_step`` step at phase 13's shape
@@ -321,6 +325,10 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               each rank's slice of the K/V caches' sequence; its FLOPs and
               bytes per device beside the decode that gathered the
               parameters and the caches (``GATHERED_STEP``).
+              qwen2-moe-a2.7b × decode_32k (last): the MoE family's
+              split decode (experts across the 16 "model" ranks, the
+              token group of the global batch of 128 across the 16 data
+              ranks), beside its gathered decode (``GATHERED_STEP``).
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -3343,7 +3351,8 @@ def split_layout(cfg, mesh, params) -> dict:
     tp, _ = _tensor_parallel(cfg, mesh, params)
     return None if tp is None else dict(model=tp.size, attn=tp.attn,
                                         mlp=tp.mlp, embed=tp.embed,
-                                        head=tp.head)
+                                        head=tp.head, experts=tp.experts,
+                                        shared=tp.shared, dense=tp.dense)
 
 
 def split_prefill_bits(cfg, p_mesh, p_plain, batch, dev, reps=3) -> dict:
@@ -3486,35 +3495,22 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
                 plain_ms_median=float(np.median(times["plain"])))
 
 
-def vlm_split_bits(mesh, dev, layers=2, b=2, s=2048, decode_steps=2) -> dict:
-    """pixtral-12b at its full width (d 5,120, 32 q / 8 kv heads, d_ff
-    14,336, vocabulary 131,072, bf16 parameters, f32 moments) and
-    ``layers`` layers on ``mesh``, seeded random weights: one split train
-    step (``b`` × ``s`` tokens, patch embeddings over the first 1,024
-    positions), the split prefill and ``decode_steps`` split decode steps
-    against the plain calls from the same state, bit for bit.  The plain
-    state is the mesh leaves' local tensors (one rank's shards are
-    whole: the same storage); the mesh step's new state goes to the host
-    before the plain step runs, so that the card never holds two new
-    states."""
-    import dataclasses
+def split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps) -> dict:
+    """One split train step on ``batch``, the split prefill on ``serve``
+    and ``decode_steps`` split decode steps of ``cfg`` on ``mesh``,
+    seeded random weights, against the plain calls from the same state,
+    bit for bit.  The plain state is the mesh leaves' local tensors (one
+    rank's shards are whole: the same storage); the mesh step's new state
+    goes to the host before the plain step runs, so that the card never
+    holds two new states."""
     import torch
     from repro_torch._tree import tree_flatten_with_path, tree_leaves, \
         tree_map
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataConfig, SyntheticPipeline
     from repro_torch.launch import init_train_state, make_train_step
-    cfg = dataclasses.replace(get_config("pixtral-12b"), num_layers=layers)
     p_m, o_m = init_train_state(cfg, mesh,
                                 torch.Generator(device=dev).manual_seed(0))
     local = lambda t: t.to_local()
     p, o = tree_map(local, p_m), tree_map(local, o_m)
-    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=7)
-                              ).batch(0, device=dev)
-    batch["patch_embeds"] = torch.randn(
-        (b, cfg.num_patch_tokens, cfg.d_model), dtype=torch.float32,
-        device=dev, generator=torch.Generator(device=dev).manual_seed(1)
-    ).to(torch.bfloat16)
     step = make_train_step(cfg)
     torch.cuda.reset_peak_memory_stats()
     (new_m, ms_m) = timed(lambda: step(p_m, o_m, batch, 0))
@@ -3530,10 +3526,10 @@ def vlm_split_bits(mesh, dev, layers=2, b=2, s=2048, decode_steps=2) -> dict:
         if not bit_equal(a, b_.cpu())]
     peak = torch.cuda.max_memory_allocated()
     del new_p, host
-    serve = {k: batch[k] for k in ("tokens", "patch_embeds")}
     pre = split_prefill_bits(cfg, p_m, p, serve, dev, reps=1)
     dec = split_decode_bits(cfg, p_m, p, serve, dev, steps=decode_steps)
-    return dict(arch="pixtral-12b", layers=layers, batch=[b, s],
+    return dict(arch=cfg.name, layers=cfg.num_layers,
+                batch=list(batch["tokens"].shape),
                 params=sum(t.numel() for t in tree_leaves(p)),
                 layout=split_layout(cfg, mesh, p_m),
                 train_step_ms=dict(split=ms_m * 1e3, plain=ms_p * 1e3),
@@ -3544,6 +3540,48 @@ def vlm_split_bits(mesh, dev, layers=2, b=2, s=2048, decode_steps=2) -> dict:
                                plain=dec["plain_ms_median"]),
                 decode_cache_placements=dec["cache_placements"],
                 bits_differ=diff + pre["bits_differ"] + dec["bits_differ"])
+
+
+def vlm_split_bits(mesh, dev, layers=2, b=2, s=2048, decode_steps=2) -> dict:
+    """pixtral-12b at its full width (d 5,120, 32 q / 8 kv heads, d_ff
+    14,336, vocabulary 131,072, bf16 parameters, f32 moments) and
+    ``layers`` layers on ``mesh``: one split train step (``b`` × ``s``
+    tokens, patch embeddings over the first 1,024 positions), the split
+    prefill and ``decode_steps`` split decode steps against the plain
+    calls, bit for bit (``split_bits_at_width``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    cfg = dataclasses.replace(get_config("pixtral-12b"), num_layers=layers)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=7)
+                              ).batch(0, device=dev)
+    batch["patch_embeds"] = torch.randn(
+        (b, cfg.num_patch_tokens, cfg.d_model), dtype=torch.float32,
+        device=dev, generator=torch.Generator(device=dev).manual_seed(1)
+    ).to(torch.bfloat16)
+    serve = {k: batch[k] for k in ("tokens", "patch_embeds")}
+    return split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps)
+
+
+def moe_split_bits(mesh, dev, layers=2, b=2, s=1024, decode_steps=2) -> dict:
+    """qwen2-moe-a2.7b at its full width (d 2,048, 16 / 16 heads, 60
+    routed experts padded to 64, top-4, 4 shared experts: a shared MLP
+    of 5,632, vocabulary 151,936, bf16 parameters, f32 moments) and
+    ``layers`` layers on ``mesh``: one split train step over ``b`` ×
+    ``s`` tokens (one group of 2,048), the split prefill and
+    ``decode_steps`` split decode steps against the plain calls, bit for
+    bit (``split_bits_at_width``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"),
+                              num_layers=layers)
+    assert (b * s) % cfg.moe_group_size == 0, (b, s)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=9)
+                              ).batch(0, device=dev)
+    return split_bits_at_width(cfg, mesh, dev, batch,
+                               {"tokens": batch["tokens"]}, decode_steps)
 
 
 def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
@@ -3665,15 +3703,19 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
         row["decode"] = split_decode_bits(cfg, p_m, p,
                                           {"tokens": batch["tokens"]}, dev)
         row["pixtral_12b"] = vlm_split_bits(mesh, dev)
+        # 3d. the MoE family: experts, shared MLP and routing on the split
+        row["qwen2_moe_a2_7b"] = moe_split_bits(mesh, dev)
         emit(dict(phase="mesh", part="split", nvidia_smi=smi,
                   split_layout=row["split_layout"],
                   train_step_ms_median=row["mesh_step_ms_median"],
                   plain_step_ms_median=row["plain_step_ms_median"],
                   prefill=row["prefill"], decode=row["decode"],
                   reduced_llama3_8b=row["reduced_llama3_8b"],
-                  pixtral_12b=row["pixtral_12b"]))
+                  pixtral_12b=row["pixtral_12b"],
+                  qwen2_moe_a2_7b=row["qwen2_moe_a2_7b"]))
         for part in (row["prefill"], row["reduced_llama3_8b"],
-                     row["decode"], row["pixtral_12b"]):
+                     row["decode"], row["pixtral_12b"],
+                     row["qwen2_moe_a2_7b"]):
             assert not part["bits_differ"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
@@ -3766,6 +3808,13 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
     finally:
         dist.destroy_process_group()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # 3c-3d's full-width states are gone, but the allocator keeps their
+    # freed blocks cached: hand them back, so that phase 15's trace
+    # workers, each with a CUDA context of its own, find room beside its
+    # real step
+    row["reserved_bytes_at_end"] = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    row["reserved_bytes_after_release"] = torch.cuda.memory_reserved()
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     assert not row["resume"]["restore_bits_differ"], row["resume"]
@@ -3902,19 +3951,23 @@ def launch_step_analysis(dev, smi, serve_row, train_row, b=8, s=256):
 # beside (a), the rest after (a); ``run_cell`` traces a cell's passes at
 # once in worker processes, forked from the server ``main`` started.
 LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
-                ("internlm2-1.8b", "decode_32k"))
+                ("internlm2-1.8b", "decode_32k"),
+                ("qwen2-moe-a2.7b", "decode_32k"))
 
 # Cells as the step counted them when every rank gathered every leaf over
 # "model" (PERF.md §6): FLOPs per device (the roofline's composition) and
 # bytes per device (arguments + temporaries, single pod).  smollm-135m ×
 # train_4k's train step; internlm2-1.8b × decode_32k's decode, which also
 # gathered the K/V caches' sequence over "model" (the dry run of the
-# parent commit 7e926fc on the CPU).
+# commit 7e926fc on the CPU); qwen2-moe-a2.7b × decode_32k's decode, which
+# gathered its experts too (the dry run of the commit 838c564 on the CPU).
 GATHERED_STEP = {
     ("smollm-135m", "train_4k"): {"flops_per_device": 1.412e14,
                                   "bytes_per_device": 23.25e9},
     ("internlm2-1.8b", "decode_32k"): {"flops_per_device": 7.8735474688e10,
-                                       "bytes_per_device": 86.951010344e9}}
+                                       "bytes_per_device": 86.951010344e9},
+    ("qwen2-moe-a2.7b", "decode_32k"): {"flops_per_device": 1.02978551808e11,
+                                        "bytes_per_device": 188.288479272e9}}
 
 
 def run_launch(dev, smi, serve_row, train_row):

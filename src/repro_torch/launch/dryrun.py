@@ -20,14 +20,15 @@ cell this:
      keep the reference's layout.
 
 The step is the port's own (``launch.train``).  Under the ``tp``
-profile the dense and VLM families' steps split over 'model' as GSPMD
-partitions the reference's (``models.parallel``): a rank holds and
+profile the dense, VLM and MoE families' steps split over 'model' as
+GSPMD partitions the reference's (``models.parallel``): a rank holds and
 computes its share of every split leaf, and decode reads and writes its
 slice of the K/V caches' sequence (``cache_defs``' layout) with
 flash-decoding's combine, so its FLOPs, bytes, collectives and peak are
 one rank's.  A cell's JSON names the leaves that stay gathered
 (``tensor_parallel.gathered_leaves``: a block whose heads 'model' does
-not divide, the kv projections where ranks share kv heads) and, for
+not divide, the kv projections where ranks share kv heads, MoE widths
+'model' does not divide) and, for
 decode, whether 'model' splits the caches' sequence
 (``tensor_parallel.kv_cache``).  Other families and profiles gather
 every parameter, so their FLOPs per device do not divide by 'model',

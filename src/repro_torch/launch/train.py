@@ -14,7 +14,7 @@ step as explicit collectives, where GSPMD partitions it under
 ``jax.jit``:
 
 1. every rank gathers its parameters from their shards: under the
-   ``tp`` profile, for the dense and VLM families, each leaf that
+   ``tp`` profile, for the dense, VLM and MoE families, each leaf that
    "model" splits in compute (``models.parallel.leaf_roles``) only over
    the other axes — the rank keeps its "model" shard — and every other
    leaf in full;
@@ -23,7 +23,9 @@ step as explicit collectives, where GSPMD partitions it under
    too for the ``dp`` and ``zero3`` profiles), with
    ``fit_spec_to_shape``'s rule where they do not divide — and computes
    the loss and gradients on it, with the "model" group's collectives
-   inside the layers and the loss where the compute is split;
+   inside the layers and the loss where the compute is split (the MoE
+   block's token groups are the global batch's, ``_batch_split``: a
+   train step whose group would span data ranks raises);
 3. the gradients are averaged over the batch axes by all-reduce, one
    leaf at a time in tree order (one all-reduce per axis); a leaf each
    rank used only a slice of (the kv heads its q heads read) is summed
@@ -62,8 +64,8 @@ path's.
 
 The split runs wherever the mesh runs: gloo worlds of CPU processes
 (``tests/test_torch_tp_steps.py``, ``tests/test_torch_tp_decode.py``,
-``tests/test_torch_tp_vlm.py``) and NCCL on cards (``chip_smoke.py``
-phase 14, one rank).
+``tests/test_torch_tp_vlm.py``, ``tests/test_torch_tp_moe.py``) and
+NCCL on cards (``chip_smoke.py`` phase 14, one rank).
 
 ``abstract_train_args`` / ``abstract_serve_args`` build a step's
 arguments as fake tensors (fake DTensors on a mesh) for the dry run
@@ -86,7 +88,8 @@ from repro_torch.models import ModelZoo, materialize
 from repro_torch.models.layers import (abstract, dtype_of, fake_dtensor,
                                        fit_spec_to_shape, pspec_tree,
                                        resolve_spec, spec_placements)
-from repro_torch.models.parallel import TensorParallel, leaf_roles, tp_layout
+from repro_torch.models.parallel import (BatchSplit, TensorParallel,
+                                        leaf_roles, tp_layout)
 from repro_torch.models.transformer import cache_defs
 from repro_torch.optim.adamw import (AdamWConfig, adamw_apply, adamw_init,
                                      adamw_update)
@@ -211,6 +214,25 @@ def _batch_global(t: torch.Tensor, dim: int, axes, mesh, full_batch: int):
                               run_check=False)
 
 
+def _batch_split(cfg: ArchConfig, batch, axes, mesh):
+    """The data ranks whose slices of ``batch`` a step on ``mesh``
+    computes (the mesh axes that split its batch dimension, as
+    :func:`_batch_local` places it), for the MoE block's token groups:
+    None for the other families, or where no axis splits the batch."""
+    if cfg.family != "moe":
+        return None
+    placements = _batch_placements(batch["tokens"].shape, 0, axes, mesh)
+    names = [mesh.mesh_dim_names[i] for i, p in enumerate(placements)
+             if p.is_shard(0)]
+    if not names:
+        return None
+    sizes = tuple(mesh.size(mesh.mesh_dim_names.index(a)) for a in names)
+    index = 0
+    for a, n in zip(names, sizes):
+        index = index * n + mesh.get_local_rank(a)
+    return BatchSplit(tuple(mesh.get_group(a) for a in names), sizes, index)
+
+
 def _tensor_parallel(cfg: ArchConfig, mesh, params):
     """(the ``TensorParallel`` of this rank, the role of every leaf) for a
     step on ``mesh``; (None, None) where no compute splits over "model"
@@ -284,8 +306,8 @@ def _mesh_step(mesh, cfg, loss_and_grads, opt, params, opt_state, batch,
         roles = tree_map(lambda p: None, params)
     work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
     local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
-    loss, grads = (loss_and_grads(work, local_batch) if tp is None else
-                   loss_and_grads(work, local_batch, tp))
+    loss, grads = loss_and_grads(work, local_batch, tp,
+                                 _batch_split(cfg, batch, axes, mesh))
     del work
     n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
     flat = tree_flatten_with_path(grads)
@@ -421,8 +443,9 @@ def _kv_global(t, cfg: ArchConfig, mesh, key: str, full_batch: int,
 def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
     rank's slice of the batch, the logits as a DTensor sharded on the
-    batch.  Under the ``tp`` profile, for the dense and VLM families,
-    both split over "model" as the train step does (``_tensor_parallel``)
+    batch.  Under the ``tp`` profile, for the dense, VLM and MoE
+    families, both split over "model" as the train step does
+    (``_tensor_parallel``)
     and the K/V caches go in and out placed as ``cache_defs`` +
     ``fit_spec_to_shape`` say: decode reads and writes each rank's shard
     and moves no cache; prefill turns its per-rank kv heads into that
@@ -437,30 +460,32 @@ def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
     b = next(iter(batch.values())).shape[0]
     local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
+    split = _batch_split(cfg, batch, axes, mesh)
     if tp is None:
         if caches is None:
-            logits, new_caches = call(work, local_batch)
+            logits, new_caches = call(work, local_batch, batch_split=split)
         else:
             logits, new_caches = call(work, tree_map(
                 lambda c, d: _batch_local(c, d, axes, mesh), caches, dims),
-                local_batch)
+                local_batch, batch_split=split)
         del work
         return (_batch_global(logits, 0, axes, mesh, b),
                 tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
                          new_caches, dims))
     if caches is None:
         seq = batch["tokens"].shape[1]
-        logits, new_caches = call(work, local_batch, tp)
-        split = _seq_split(_cache_placements(
+        logits, new_caches = call(work, local_batch, tp, split)
+        seq_split = _seq_split(_cache_placements(
             cfg, mesh, "kv", (cfg.num_layers, 2, b, seq, cfg.num_kv_heads,
                               cfg.head_dim)), mesh)
-        new_caches = {k: _prefill_kv_shards(c, tp, cfg, split)
+        new_caches = {k: _prefill_kv_shards(c, tp, cfg, seq_split)
                       for k, c in new_caches.items()}
     else:
         shards, kv_seq = _kv_cache_shards(cfg, mesh, caches)
         seq = next(iter(caches.values())).shape[_KV_SEQ]
         logits, new_caches = call(work, shards, local_batch,
-                                  dataclasses.replace(tp, kv_seq=kv_seq))
+                                  dataclasses.replace(tp, kv_seq=kv_seq),
+                                  split)
     del work
     return (_batch_global(logits, 0, axes, mesh, b),
             {k: _kv_global(c, cfg, mesh, k, b, seq)

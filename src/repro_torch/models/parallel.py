@@ -3,11 +3,12 @@ counterpart of GSPMD partitioning the reference's jitted step over the
 leaves that ``pspec_tree`` tags "model", and its decode over the K/V
 caches that ``cache_defs`` splits on the sequence).
 
-The dense and VLM families' layers (the VLM's blocks are the dense
-blocks) take their "model"-tagged weights as each rank's shard and add
-the collectives that make the result the plain one, on the "model"
-process group (explicit ``torch.distributed`` calls; DTensor has no
-rules for attention's einsums, the checkpoints or the chunked loss):
+The dense, VLM and MoE families' layers (the VLM's blocks are the dense
+blocks; the MoE's attention, embedding and head too) take their
+"model"-tagged weights as each rank's shard and add the collectives
+that make the result the plain one, on the "model" process group
+(explicit ``torch.distributed`` calls; DTensor has no rules for
+attention's einsums, the checkpoints or the chunked loss):
 
 * attention: ``wq`` / ``wk`` / ``wv`` column-parallel by whole heads,
   each rank attending over its own heads, ``wo`` row-parallel and one
@@ -18,6 +19,14 @@ rules for attention's einsums, the checkpoints or the chunked loss):
   9), the block stays gathered;
 * the MLP: ``w1`` / ``w3`` column-parallel, ``w2`` row-parallel, one
   all-reduce;
+* the MoE block (``models.moe``): the experts split across the ranks
+  (rank r computes experts [r·E/size, (r+1)·E/size) of the padded E),
+  the shared and dense-residual MLPs column / row-parallel, one
+  all-reduce of the block's summed partial output.  Routing stays whole
+  on every rank, so every rank routes alike; the gates reach the
+  combine through :func:`copy_to_model` (each rank combines only its
+  experts, so their gradient is summed over the group), the router's
+  input and the load-balance term do not;
 * the embedding (split on d): each rank looks up its slice of d, then an
   all-gather along d;
 * the head: untied and split on the vocabulary, a vocabulary-parallel
@@ -57,16 +66,18 @@ reads (``("slice", dim, start, stop)``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, List, Optional, Tuple
 
 import torch
 
 from repro_torch._tree import tree_flatten_with_path, tree_unflatten
 
-__all__ = ["TensorParallel", "tp_layout", "leaf_roles", "gathered_leaves",
-           "copy_to_model", "reduce_from_model", "gather_from_model",
-           "model_all_reduce", "gather_kv_heads", "join_kv_heads",
-           "vocab_logsumexp", "vocab_gold", "kv_head_range"]
+__all__ = ["TensorParallel", "BatchSplit", "tp_layout", "leaf_roles",
+           "gathered_leaves", "copy_to_model", "reduce_from_model",
+           "gather_from_model", "gather_from_batch", "model_all_reduce",
+           "gather_kv_heads", "join_kv_heads", "vocab_logsumexp",
+           "vocab_gold", "kv_head_range"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,7 +86,9 @@ class TensorParallel:
 
     ``attn``: "split", "kv_slice" or "gathered"; ``mlp`` / ``embed``:
     split or not; ``head``: "vocab" (untied, split on the vocabulary),
-    "rows" (tied ``embed.T``, split on d) or None (gathered).
+    "rows" (tied ``embed.T``, split on d) or None (gathered).  The MoE
+    block's ``experts`` / ``shared`` / ``dense``: the routed experts,
+    the shared MLP and the dense-residual MLP split or not.
     ``kv_seq`` (decode only): the slot count S of the K/V caches where
     each rank holds its even share of the S slots, rank r slots
     [r·S/size, (r+1)·S/size); None where every rank holds whole
@@ -87,14 +100,37 @@ class TensorParallel:
     mlp: bool
     embed: bool
     head: Optional[str]
+    experts: bool = False
+    shared: bool = False
+    dense: bool = False
     kv_seq: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSplit:
+    """The data ranks a step split its batch over, for the MoE block's
+    token groups (``models.moe``): ``groups`` / ``sizes`` the process
+    groups and sizes of the mesh axes that split the batch dimension,
+    outer first; ``index`` this rank's position among their
+    ``ranks`` ranks, row-major, which is the order of the batch's
+    slices."""
+    groups: Tuple[Any, ...]
+    sizes: Tuple[int, ...]
+    index: int
+
+    @property
+    def ranks(self) -> int:
+        return math.prod(self.sizes)
 
 
 def tp_layout(cfg, size: int) -> Optional[dict]:
     """Which blocks of ``cfg`` split over a "model" group of ``size``
     ranks; None where the family keeps the gathered step (every family
-    but dense and VLM, whose blocks are the dense blocks)."""
-    if cfg.family not in ("dense", "vlm"):
+    but dense, VLM and MoE, whose attention, embedding and head are the
+    dense ones).  The MoE family has no MLP block; its experts split
+    where ``size`` divides the padded expert count, its shared and
+    dense-residual MLPs where it divides their width."""
+    if cfg.family not in ("dense", "vlm", "moe"):
         return None
     h, kh = cfg.num_heads, cfg.num_kv_heads
     attn = "gathered"
@@ -109,7 +145,16 @@ def tp_layout(cfg, size: int) -> Optional[dict]:
         head = "rows" if embed else None
     else:
         head = "vocab" if cfg.padded_vocab() % size == 0 else None
-    return dict(attn=attn, mlp=cfg.d_ff % size == 0, embed=embed, head=head)
+    if cfg.family != "moe":
+        return dict(attn=attn, mlp=cfg.d_ff % size == 0, embed=embed,
+                    head=head)
+    from .moe import padded_experts
+    shared = cfg.d_ff * cfg.num_shared_experts
+    dense = cfg.d_ff_dense or cfg.d_ff
+    return dict(attn=attn, mlp=False, embed=embed, head=head,
+                experts=padded_experts(cfg.num_experts) % size == 0,
+                shared=bool(shared) and shared % size == 0,
+                dense=cfg.moe_dense_residual and dense % size == 0)
 
 
 def kv_head_range(cfg, size: int, rank: int) -> Tuple[int, int]:
@@ -138,6 +183,12 @@ def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
         return ("slice", -1, lo * cfg.head_dim, hi * cfg.head_dim)
     if block == "mlp" and layout["mlp"]:
         return ("split", -2) if name == "w2" else ("split", -1)
+    if block == "moe":
+        if name in ("w1", "w3", "w2"):   # (L, E, ., .): experts at -3
+            return ("split", -3) if layout["experts"] else ("gathered",)
+        kind, _, w = name.partition("_")  # shared_w1, dense_w2, ...
+        if kind in ("shared", "dense") and layout[kind]:
+            return ("split", -2) if w == "w2" else ("split", -1)
     return ("gathered",)
 
 
@@ -178,6 +229,16 @@ def gathered_leaves(cfg, defs, size: int) -> List[dict]:
             why = f"{cfg.num_heads} q heads on {size} ranks"
         elif path[-2:-1] == ("mlp",):
             why = f"d_ff {cfg.d_ff} on {size} ranks"
+        elif path[-2:-1] == ("moe",) and path[-1] in ("w1", "w3", "w2"):
+            from .moe import padded_experts
+            why = (f"{padded_experts(cfg.num_experts)} padded experts on "
+                   f"{size} ranks")
+        elif path[-1].startswith("shared_"):
+            why = (f"shared MLP width {cfg.d_ff * cfg.num_shared_experts} "
+                   f"on {size} ranks")
+        elif path[-1].startswith("dense_"):
+            why = (f"dense residual width {cfg.d_ff_dense or cfg.d_ff} on "
+                   f"{size} ranks")
         elif path == ("head",):
             why = f"padded vocabulary {cfg.padded_vocab()} on {size} ranks"
         else:
@@ -258,6 +319,20 @@ def gather_from_model(x: torch.Tensor, dim: int,
     if tp.size == 1:
         return x
     return _GatherFromModel.apply(x, dim, tp.group, tp.size, tp.rank)
+
+
+def gather_from_batch(x: torch.Tensor, split: BatchSplit) -> torch.Tensor:
+    """``x`` of every rank of ``split``, stacked on a new first dimension
+    in the ranks' order: one all-gather per batch axis, the inner axis
+    first.  No gradient."""
+    import torch.distributed as dist
+    out = x[None]
+    for group, size in reversed(list(zip(split.groups, split.sizes))):
+        out = out.contiguous()
+        parts = [torch.empty_like(out) for _ in range(size)]
+        dist.all_gather(parts, out, group=group)
+        out = torch.cat(parts, 0)
+    return out
 
 
 def model_all_reduce(x: torch.Tensor, tp: TensorParallel,

@@ -19,10 +19,12 @@ generated token (as ``examples/serve_decode.py`` does).  With
 ``cfg.kv_cache_dtype="float8_e4m3fn"`` the cache is stored in f8,
 converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
 
-Under tensor-parallel compute (``tp``, ``models.parallel``; the dense
-and VLM families) the forward paths take each rank's shards of the
+Under tensor-parallel compute (``tp``, ``models.parallel``; the dense,
+VLM and MoE families) the forward paths take each rank's shards of the
 split leaves; decode takes each rank's slice of the caches' sequence
-where ``tp.kv_seq`` says so, and its batch's slice on a mesh.
+where ``tp.kv_seq`` says so, and its batch's slice on a mesh.  On a mesh
+the MoE block forms its token groups over the global batch
+(``batch_split``, ``models.moe``).
 """
 from __future__ import annotations
 
@@ -255,10 +257,12 @@ def shared_attn_defs(cfg) -> dict:
             "mlp": mlp_defs(cfg)}
 
 
-def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None):
+def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None,
+                batch_split=None):
     """Apply one layer (``mode`` "train", "prefill" or "decode"; ``tp``
-    the dense and VLM families' tensor-parallel compute).  Returns (x,
-    new cache or None in train mode, aux)."""
+    the dense, VLM and MoE families' tensor-parallel compute;
+    ``batch_split`` the data ranks of the MoE block's token groups).
+    Returns (x, new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         h = rmsnorm(x, params["ln1"])
@@ -271,7 +275,7 @@ def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None):
         x = x + a
         h = rmsnorm(x, params["ln2"])
         if cfg.family == "moe":
-            m, aux = moe_apply(params["moe"], h, cfg)
+            m, aux = moe_apply(params["moe"], h, cfg, tp, batch_split)
         else:
             m = mlp_apply(params["mlp"], h, tp)
         return x + m, new_kv, aux
@@ -411,7 +415,7 @@ def _remat(body, cfg, mode: str):
 
 
 def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True,
-                tp=None):
+                tp=None, batch_split=None):
     """Apply stacked layers in order, threading per-layer caches in and
     out.  Returns (x, stacked new caches or None in train mode, summed
     aux).  A layer's recompute under its checkpoint runs its collectives
@@ -421,24 +425,26 @@ def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True,
     caches = [None] * len(layers) if caches is None else _unstack(caches)
     new, aux = [], 0.0
     for lp, cache in zip(layers, caches):
-        x, c, a = body(lp, x, cfg, mode, cache, tp)
+        x, c, a = body(lp, x, cfg, mode, cache, tp, batch_split)
         new.append(c)
         aux = aux + a
     return x, (_stack(new) if mode != "train" else None), aux
 
 
 def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
-               tp=None):
+               tp=None, batch_split=None):
     """Forward over a full sequence, ``mode`` "train" or "prefill".
 
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
-    ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense
-    and VLM families): the parameters are this rank's shards of the
+    ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense,
+    VLM and MoE families): the parameters are this rank's shards of the
     split leaves, the hidden states the full ones (the VLM's patch
     embeddings overwrite the first positions after the embedding's
     gather, on every rank), and prefill's K/V caches hold this rank's kv
-    heads.
+    heads.  ``batch_split``
+    (:class:`~repro_torch.models.parallel.BatchSplit`): the data ranks
+    ``inputs`` is this rank's slice of, for the MoE block's groups.
     """
     _check_tp(tp, cfg)
     if mode not in ("train", "prefill"):
@@ -455,7 +461,8 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     if cfg.family == "hybrid":
         return _hybrid_forward(params, x, cfg, mode)
 
-    x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode, tp=tp)
+    x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode, tp=tp,
+                                     batch_split=batch_split)
     x = rmsnorm(x, params["final_norm"])
     if mode == "train":
         return x, None, aux
@@ -533,23 +540,25 @@ def _encdec_forward(params, inputs, cfg, mode):
 # ------------------------------------------------------------------- decode
 
 def _check_tp(tp, cfg):
-    if tp is not None and cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"tensor-parallel compute covers the dense and VLM "
-                         f"families, not {cfg.family!r}")
+    if tp is not None and cfg.family not in ("dense", "vlm", "moe"):
+        raise ValueError(f"tensor-parallel compute covers the dense, VLM "
+                         f"and MoE families, not {cfg.family!r}")
 
 
-def lm_decode_step(params, caches, inputs, cfg, tp=None):
+def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
     """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches).
 
-    ``tp`` (dense and VLM families): the parameters are this rank's
+    ``tp`` (dense, VLM and MoE families): the parameters are this rank's
     shards of the split leaves and, with ``tp.kv_seq``, the K/V caches
-    this rank's slice of their sequence, returned so."""
+    this rank's slice of their sequence, returned so.  ``batch_split``:
+    as :func:`lm_forward`'s."""
     _check_tp(tp, cfg)
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
 
     if cfg.family in ("dense", "vlm", "moe"):
         x, new_kv, _ = _run_layers(params["layers"], x, cfg, "decode",
-                                   caches["kv"], tp=tp)
+                                   caches["kv"], tp=tp,
+                                   batch_split=batch_split)
         return rmsnorm(x, params["final_norm"]), {"kv": new_kv}
 
     if cfg.family == "ssm":

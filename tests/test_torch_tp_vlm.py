@@ -190,7 +190,6 @@ def test_vlm_layout_on_sixteen_ranks():
     named = gathered_leaves(cfg, defs, 16)
     assert {g["leaf"] for g in named} == kv, named
     assert all(g["role"] == "slice" and g["reason"] for g in named), named
-    # every family but dense and VLM keeps the gathered step
-    for arch in ("qwen2-moe-a2.7b", "mamba2-370m", "zamba2-7b",
-                 "seamless-m4t-large-v2"):
+    # every family but dense, VLM and MoE keeps the gathered step
+    for arch in ("mamba2-370m", "zamba2-7b", "seamless-m4t-large-v2"):
         assert tp_layout(get_config(arch), 16) is None, arch
