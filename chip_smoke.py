@@ -280,12 +280,20 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               padded experts, top-4, a shared MLP of 5,632) at its full
               width and 2 layers, 2 × 1,024 tokens (one group of 2,048),
               routing, experts and shared MLP on the split, with the
-              train step's peak memory.  Then a save from the mesh,
+              train step's peak memory; and so mamba2-370m (the SSM
+              family: 32 heads of 64, state 128, ``in_proj``'s 4,384
+              columns and the conv's 2,304 channels sliced to the
+              rank's, the gated norm's Σy² on the group) at its full
+              width and 4 layers, 4 × 1,024 tokens, the states on their
+              heads (``ssm_split_bits``).  Then a save from the mesh,
               ``plan_mesh(1, 1)``, a restore
               through ``remesh`` and one more step, its loss bit for bit
               with the uninterrupted run's; ``ef_roundtrip`` and
               ``compressed_psum`` over every gradient leaf on the card, bit
-              for bit with the same on the CPU (a gloo group); a one-stage
+              for bit with the same on the CPU (a gloo group), and on
+              ``int8_scale_ties`` (a max whose quotient by 127 and
+              product with fl(1/127) part, elements at halves of both
+              int8 grids): the scale the quotient; a one-stage
               ``pipeline_apply`` of 8 microbatches of ``tanh(h @ w)`` at
               d 576, bit for bit with the chain, and ``plan``'s makespan
               and bubble for ring(4).  The group is destroyed, the
@@ -309,7 +317,9 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               timed again.  (b) ``dryrun.run_cell`` on a fake world of
               512 ranks with fake CUDA tensors: smollm-135m × train_4k
               (single pod, multi pod, roofline, driven from a thread
-              beside (a)) and mamba2-370m × long_500k (after (a)), each
+              beside (a)) and mamba2-370m × long_500k (after (a); the
+              SSM family's split decode, each rank's heads of the
+              states, beside its gathered decode, ``GATHERED_STEP``), each
               cell's four traces at once in worker processes (their
               fork server, started before phase 1, is stopped and
               waited for when the script exits); each cell's terms,
@@ -3059,6 +3069,30 @@ def bit_equal(a, b) -> bool:
     return torch.equal(a, b)
 
 
+def int8_scale_ties(n=4096, seed=0):
+    """An f32 gradient on which a wrong int8 scale shows: its max ``m``
+    has ``fl(m · fl(1/127)) != fl(m / 127)`` (a product with the
+    divisor's reciprocal, as CUDA computes a division by a Python
+    scalar, against the quotient the reference takes), and every other
+    element lies at a half of the int8 grid of one of the two scales,
+    so that ``round(x / scale)`` parts between them.  Returns (x, the
+    quotient, the product, how many elements' int8 values part), all
+    found with numpy on the host."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    inv = np.float32(1) / np.float32(127)
+    for m in rng.uniform(0.5, 2.0, 1000).astype(np.float32):
+        quot, prod = m / np.float32(127), m * inv
+        if quot != prod:
+            break
+    k = rng.integers(-126, 126, n).astype(np.float32)
+    s = np.where(rng.random(n) < 0.5, quot, prod).astype(np.float32)
+    x = (k + np.float32(0.5)) * s
+    x[0] = m
+    parted = np.round(x / quot) != np.round(x / prod)
+    return x, quot, prod, int(parted.sum())
+
+
 def train_loop(zoo, params, opt, opt_state, data, steps, dev, ckpt=None,
                ckpt_step=None):
     """examples/train_bittide_cluster.py's loop: ``value_and_grad`` of
@@ -3352,7 +3386,15 @@ def split_layout(cfg, mesh, params) -> dict:
     return None if tp is None else dict(model=tp.size, attn=tp.attn,
                                         mlp=tp.mlp, embed=tp.embed,
                                         head=tp.head, experts=tp.experts,
-                                        shared=tp.shared, dense=tp.dense)
+                                        shared=tp.shared, dense=tp.dense,
+                                        ssm=tp.ssm)
+
+
+def cache_layout(caches) -> str:
+    """The placements of a tree of cache DTensors, leaf by leaf."""
+    from repro_torch._tree import tree_flatten_with_path
+    return "; ".join(f"{'/'.join(path)} {tuple(t.placements)}"
+                     for path, t in tree_flatten_with_path(caches))
 
 
 def split_prefill_bits(cfg, p_mesh, p_plain, batch, dev, reps=3) -> dict:
@@ -3431,9 +3473,9 @@ def reduced_split_bits(mesh, dev, steps=3) -> dict:
 def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
     """``make_prefill_step`` on ``batch`` (tokens, and the VLM's patch
     embeddings) then ``steps`` greedy ``make_decode_step``
-    calls on a mesh state (``widen_mesh_caches`` between them; the K/V
-    caches placed as ``cache_defs`` lays them out, split on the sequence
-    over "model") against ``ModelZoo.prefill`` then ``.decode`` on
+    calls on a mesh state (``widen_mesh_caches`` between them; the
+    caches placed as ``cache_defs`` lays them out: K/V split on the
+    sequence over "model", SSM states on their heads) against ``ModelZoo.prefill`` then ``.decode`` on
     ``widen_caches`` on the plain state, both fed the plain chain's greedy
     tokens: the logits and caches bit for bit after the prefill and
     every step, and the CUDA-event ms of each decode call (the widen
@@ -3468,7 +3510,7 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
         got_l, got_c = make_prefill_step(cfg)(p_mesh, batch)
         want_l, want_c = zoo.prefill(p_plain, batch)
     diff = differ("prefill", got_l, got_c, want_l, want_c)
-    placements = [str(tuple(got_c["kv"].placements))]
+    placements = [cache_layout(got_c)]
     with torch.inference_mode():   # one untimed call of each, to warm up
         tok = want_l.argmax(-1).to(torch.int32)
         decode(p_mesh, widen_mesh_caches(cfg, got_c), {"tokens": tok})
@@ -3485,10 +3527,11 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
                                           {"tokens": tok})
         times["plain"].append(ms)
         diff += differ(f"step{n}", got_l, got_c, want_l, want_c)
-        placements.append(str(tuple(got_c["kv"].placements)))
+        placements.append(cache_layout(got_c))
     return dict(batch=list(batch["tokens"].shape), steps=steps,
                 bits_differ=diff,
-                cache_seq=int(want_c["kv"].shape[3]),
+                cache_seq=(int(want_c["kv"].shape[3]) if "kv" in want_c
+                           else None),
                 cache_placements=placements,
                 split_ms=times["split"], plain_ms=times["plain"],
                 split_ms_median=float(np.median(times["split"])),
@@ -3584,6 +3627,24 @@ def moe_split_bits(mesh, dev, layers=2, b=2, s=1024, decode_steps=2) -> dict:
                                {"tokens": batch["tokens"]}, decode_steps)
 
 
+def ssm_split_bits(mesh, dev, layers=4, b=4, s=1024, decode_steps=2) -> dict:
+    """mamba2-370m at its full width (d 1,024, d_inner 2,048, 32 heads
+    of 64, state 128, chunk 256, vocabulary 50,280, f32 parameters and
+    moments) and ``layers`` layers on ``mesh``: one split train step
+    over ``b`` × ``s`` tokens, the split prefill and ``decode_steps``
+    split decode steps (the states on their heads, the conv tails on
+    their channels) against the plain calls, bit for bit
+    (``split_bits_at_width``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    cfg = dataclasses.replace(get_config("mamba2-370m"), num_layers=layers)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=11)
+                              ).batch(0, device=dev)
+    return split_bits_at_width(cfg, mesh, dev, batch,
+                               {"tokens": batch["tokens"]}, decode_steps)
+
+
 def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
              s=256, steps=5):
     """Phase 14: the distributed training and serving paths on a one-rank
@@ -3605,7 +3666,8 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                                     state_shardings, value_and_grad)
     from repro_torch.models import ModelZoo
     from repro_torch.optim import AdamWConfig, adamw_init
-    from repro_torch.optim.compression import compressed_psum, ef_roundtrip
+    from repro_torch.optim.compression import (compress, compressed_psum,
+                                               ef_roundtrip)
     from repro_torch.sched import pipeline_apply, plan
     t_phase = time.perf_counter()
     cfg = get_config(name)
@@ -3705,6 +3767,8 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
         row["pixtral_12b"] = vlm_split_bits(mesh, dev)
         # 3d. the MoE family: experts, shared MLP and routing on the split
         row["qwen2_moe_a2_7b"] = moe_split_bits(mesh, dev)
+        # 3e. the SSM family: heads, the gated norm's sum, the state cache
+        row["mamba2_370m"] = ssm_split_bits(mesh, dev)
         emit(dict(phase="mesh", part="split", nvidia_smi=smi,
                   split_layout=row["split_layout"],
                   train_step_ms_median=row["mesh_step_ms_median"],
@@ -3712,10 +3776,11 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                   prefill=row["prefill"], decode=row["decode"],
                   reduced_llama3_8b=row["reduced_llama3_8b"],
                   pixtral_12b=row["pixtral_12b"],
-                  qwen2_moe_a2_7b=row["qwen2_moe_a2_7b"]))
+                  qwen2_moe_a2_7b=row["qwen2_moe_a2_7b"],
+                  mamba2_370m=row["mamba2_370m"]))
         for part in (row["prefill"], row["reduced_llama3_8b"],
                      row["decode"], row["pixtral_12b"],
-                     row["qwen2_moe_a2_7b"]):
+                     row["qwen2_moe_a2_7b"], row["mamba2_370m"]):
             assert not part["bits_differ"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
@@ -3778,6 +3843,21 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                 comp["residual_bits_differ"].append(key)
             if not bit_equal(mean.cpu(), mean_c):
                 comp["psum_bits_differ"].append(key)
+        # a max whose quotient by 127 and product with fl(1/127) part,
+        # elements at halves of both int8 grids
+        x, quot, _, parted = int8_scale_ties()
+        g_c = torch.from_numpy(x)
+        z_c = torch.zeros_like(g_c)
+        g, z = g_c.to(dev), z_c.to(dev)
+        pairs = {"ef_roundtrip": (ef_roundtrip(g, z), ef_roundtrip(g_c, z_c)),
+                 "compressed_psum": (compressed_psum(g, z, (mesh, "data")),
+                                     compressed_psum(g_c, z_c, cpu))}
+        comp["scale_ties"] = dict(
+            elements=len(x), int8_parted_by_the_product=parted,
+            scale_is_quotient=float(compress(g)[1]) == float(quot),
+            bits_differ=[f"{k}/{i}" for k, (card, host) in pairs.items()
+                         for i, (a, b) in enumerate(zip(card, host))
+                         if not bit_equal(a.cpu(), b)])
         row["compression"] = comp
         del grads, card_ef, card_ps
 
@@ -3822,6 +3902,8 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
     for k in ("payload_bits_differ", "residual_bits_differ",
               "psum_bits_differ"):
         assert not comp[k], comp
+    assert comp["scale_ties"]["scale_is_quotient"], comp["scale_ties"]
+    assert not comp["scale_ties"]["bits_differ"], comp["scale_ties"]
     assert row["pipeline"]["bit_identical_to_chain"], row["pipeline"]
     assert row["pipeline"]["ring4_plan"]["bounded"], row["pipeline"]
     return row
@@ -3960,8 +4042,12 @@ LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
 # train_4k's train step; internlm2-1.8b × decode_32k's decode, which also
 # gathered the K/V caches' sequence over "model" (the dry run of the
 # commit 7e926fc on the CPU); qwen2-moe-a2.7b × decode_32k's decode, which
-# gathered its experts too (the dry run of the commit 838c564 on the CPU).
+# gathered its experts too (the dry run of the commit 838c564 on the CPU);
+# mamba2-370m × long_500k's decode, which gathered its Mamba2 blocks (the
+# dry run of the commit 22a1a09 with fake CUDA tensors on an H100 host).
 GATHERED_STEP = {
+    ("mamba2-370m", "long_500k"): {"flops_per_device": 7.60741888e8,
+                                   "bytes_per_device": 2.246065664e9},
     ("smollm-135m", "train_4k"): {"flops_per_device": 1.412e14,
                                   "bytes_per_device": 23.25e9},
     ("internlm2-1.8b", "decode_32k"): {"flops_per_device": 7.8735474688e10,

@@ -20,17 +20,19 @@ cell this:
      keep the reference's layout.
 
 The step is the port's own (``launch.train``).  Under the ``tp``
-profile the dense, VLM and MoE families' steps split over 'model' as
-GSPMD partitions the reference's (``models.parallel``): a rank holds and
-computes its share of every split leaf, and decode reads and writes its
-slice of the K/V caches' sequence (``cache_defs``' layout) with
-flash-decoding's combine, so its FLOPs, bytes, collectives and peak are
-one rank's.  A cell's JSON names the leaves that stay gathered
-(``tensor_parallel.gathered_leaves``: a block whose heads 'model' does
-not divide, the kv projections where ranks share kv heads, MoE widths
-'model' does not divide) and, for
-decode, whether 'model' splits the caches' sequence
-(``tensor_parallel.kv_cache``).  Other families and profiles gather
+profile the dense, VLM, MoE and SSM families' steps split over 'model'
+as GSPMD partitions the reference's (``models.parallel``): a rank holds
+and computes its share of every split leaf, and decode reads and writes
+its slice of the K/V caches' sequence (``cache_defs``' layout) with
+flash-decoding's combine, or its heads of the Mamba2 states, so its
+FLOPs, bytes, collectives and peak are one rank's.  A cell's JSON names
+the leaves that stay gathered (``tensor_parallel.gathered_leaves``: a
+block whose heads 'model' does not divide, the kv projections where
+ranks share kv heads, MoE widths 'model' does not divide, a Mamba2
+block's fused ``in_proj`` and conv, sliced to a rank's columns) and,
+for decode, whether 'model' splits the caches' sequence
+(``tensor_parallel.kv_cache``) or the SSM states' heads
+(``tensor_parallel.ssm_cache``).  Other families and profiles gather
 every parameter, so their FLOPs per device do not divide by 'model',
 and a large architecture can exceed a card's memory: the dry run
 reports that as it is (``exceeds_device_memory``), and skips nothing
@@ -240,7 +242,9 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
     the layout (``tp_layout``; None for a family that keeps the gathered
     step), the "model"-tagged leaves computed gathered, with why, and
     for decode where the K/V caches lie: "split on the sequence" where
-    'model' divides it, else "replicated"."""
+    'model' divides it, else "replicated"; the SSM family's where its
+    states and conv tails lie (on the heads / channels where 'model'
+    divides them, else replicated), with one rank's GB of each."""
     if not _profile(cfg, ("data",))[1]:
         return None
     from repro_torch.models import ModelZoo
@@ -249,12 +253,27 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
     layout = tp_layout(cfg, model)
     out = {"model": model, "layout": layout,
            "gathered_leaves": gathered_leaves(cfg, defs, model)}
-    if decode and layout is not None:
-        # the serving steps' own placement of the caches, on the
-        # production mesh's axes and sizes (all that it reads of a mesh)
-        mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
-                               shape=(256 // model, model))
-        kv = ModelZoo(cfg).cache_defs(shape)["kv"].shape
+    if not decode or layout is None:
+        return out
+    # the serving steps' own placement of the caches, on the production
+    # mesh's axes and sizes (all that it reads of a mesh)
+    mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
+                           shape=(256 // model, model))
+    caches = ModelZoo(cfg).cache_defs(shape)
+    if "mamba" in caches:
+        where = {}
+        for leaf, d in caches["mamba"].items():
+            place = _cache_placements(cfg, mesh, ("mamba", leaf), d.shape)
+            ranks = math.prod(n for n, p in zip(mesh.shape, place)
+                              if p.is_shard())
+            where[leaf] = dict(
+                model=("split on the " + ("heads" if leaf == "state"
+                                          else "channels")
+                       if place[1].is_shard() else "replicated"),
+                gb_per_device=math.prod(d.shape) * 2 / ranks / 1e9)
+        out["ssm_cache"] = where
+    if "kv" in caches:
+        kv = caches["kv"].shape
         split = _seq_split(_cache_placements(cfg, mesh, "kv", kv), mesh)
         out["kv_cache"] = ("split on the sequence" if split
                            else "replicated: 'model' does not divide "

@@ -14,10 +14,10 @@ step as explicit collectives, where GSPMD partitions it under
 ``jax.jit``:
 
 1. every rank gathers its parameters from their shards: under the
-   ``tp`` profile, for the dense, VLM and MoE families, each leaf that
-   "model" splits in compute (``models.parallel.leaf_roles``) only over
-   the other axes — the rank keeps its "model" shard — and every other
-   leaf in full;
+   ``tp`` profile, for the dense, VLM, MoE and SSM families, each leaf
+   that "model" splits in compute (``models.parallel.leaf_roles``) only
+   over the other axes — the rank keeps its "model" shard — and every
+   other leaf in full;
 2. it takes its slice of the batch — the batch dimension split over the
    profile's batch axes (``_profile``: the mesh's data axes, and "model"
    too for the ``dp`` and ``zero3`` profiles), with
@@ -28,8 +28,9 @@ step as explicit collectives, where GSPMD partitions it under
    train step whose group would span data ranks raises);
 3. the gradients are averaged over the batch axes by all-reduce, one
    leaf at a time in tree order (one all-reduce per axis); a leaf each
-   rank used only a slice of (the kv heads its q heads read) is summed
-   over "model" first;
+   rank used only column ranges of (the kv heads its q heads read, a
+   Mamba2 block's heads and share of B and C in its fused ``in_proj``
+   and conv) is summed over "model" first;
 4. AdamW runs on each rank's shard of every leaf, with the norm of the
    full gradients (the split leaves' squared norms summed over "model"
    in one all-reduce);
@@ -53,7 +54,12 @@ replicated over "model"; ``_cache_placements``): decode takes and
 returns each rank's shard, writing slot S-1 on the rank that holds it
 and attending with flash-decoding's combine over the ranks' slices, and
 moves no cache; prefill hands each rank its slice of every kv head
-(``_prefill_kv_shards``: an all-to-all where "model" splits the heads);
+(``_prefill_kv_shards``: an all-to-all where "model" splits the heads).
+The SSM family's states lie on their heads over "model", and prefill
+and decode compute each rank's heads, so neither moves a state; its
+conv tails lie on their channels over "model", which cut across a
+rank's, so decode takes them whole (one all-gather) and both return
+every channel for a local slice;
 ``widen_mesh_caches`` appends decode's slot and re-places the caches
 (an all-gather over "model" where the sequence was split).  A cache
 placed otherwise raises.  Other families and profiles gather the
@@ -64,7 +70,8 @@ path's.
 
 The split runs wherever the mesh runs: gloo worlds of CPU processes
 (``tests/test_torch_tp_steps.py``, ``tests/test_torch_tp_decode.py``,
-``tests/test_torch_tp_vlm.py``, ``tests/test_torch_tp_moe.py``) and
+``tests/test_torch_tp_vlm.py``, ``tests/test_torch_tp_moe.py``,
+``tests/test_torch_tp_ssm.py``) and
 NCCL on cards (``chip_smoke.py`` phase 14, one rank).
 
 ``abstract_train_args`` / ``abstract_serve_args`` build a step's
@@ -264,15 +271,17 @@ def _model_placements(p, mesh, dim: int) -> tuple:
 
 def _compute_view(p, role, mesh):
     """The tensor a rank computes with: its "model" shard of a split leaf
-    (gathered over the other axes), else the whole leaf, sliced for a
-    ``("slice", ...)`` leaf."""
+    (gathered over the other axes), else the whole leaf, its column
+    ranges concatenated for a ``("slice", dim, ranges)`` leaf."""
     if role is None or role[0] == "gathered":
         return p.full_tensor()
     if role[0] == "split":
         return p.redistribute(mesh, _model_placements(p, mesh, role[1])
                               ).to_local()
-    _, dim, lo, hi = role
-    return p.full_tensor().narrow(dim, lo, hi - lo)
+    _, dim, ranges = role
+    full = p.full_tensor()
+    parts = [full.narrow(dim, lo, hi - lo) for lo, hi in ranges]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
 
 def _storage_shard(g, p, role, mesh):
@@ -318,10 +327,16 @@ def _mesh_step(mesh, cfg, loss_and_grads, opt, params, opt_state, batch,
         for t, role, shape in zip([g for _, g in flat] + [loss],
                                   role_of + [None], shapes + [None]):
             if role is not None and role[0] == "slice":
-                # the kv heads this rank read, summed over "model"
-                _, dim, lo, hi = role
+                # the columns this rank read (the kv heads its q heads
+                # read; a Mamba2 block's heads and share of B and C),
+                # summed over "model"
+                _, dim, ranges = role
                 full = t.new_zeros(shape)
-                full.narrow(dim, lo, hi - lo).copy_(t)
+                at = 0
+                for lo, hi in ranges:
+                    full.narrow(dim, lo, hi - lo).copy_(
+                        t.narrow(dim, at, hi - lo))
+                    at += hi - lo
                 dist.all_reduce(full, group=tp.group)
                 model_reduces += 1
                 t = full
@@ -365,15 +380,19 @@ def _cache_batch_dims(cfg: ArchConfig):
 _KV_SEQ = 3    # a K/V cache's sequence dimension: (L, 2, B, S, Kh, hd)
 
 
-def _cache_placements(cfg: ArchConfig, mesh, key: str, shape) -> tuple:
-    """Where the decode-cache leaf ``key`` ("kv", "shared_kv") of global
-    ``shape`` lies on ``mesh``: ``cache_defs``' spec under the profile,
-    fit to the shape (``abstract_serve_args``' placement, the
-    reference's): the batch over the batch axes, the sequence over
-    "model" where it divides S, else replicated over "model"."""
+def _cache_placements(cfg: ArchConfig, mesh, key, shape) -> tuple:
+    """Where the decode-cache leaf ``key`` (a name, "kv" or "shared_kv",
+    or a path of names, ("mamba", "state")) of global ``shape`` lies on
+    ``mesh``: ``cache_defs``' spec under the profile, fit to the shape
+    (``abstract_serve_args``' placement, the reference's): the batch
+    over the batch axes, a K/V cache's sequence over "model" where it
+    divides S, a Mamba2 state's heads and conv tail's channels over
+    "model" where it divides them, else replicated over "model"."""
     axes, use_tp, _ = _profile(cfg, dp_axes_of(mesh))
-    spec = resolve_spec(cache_defs(cfg, 1, 1)[key].spec, use_fsdp=False,
-                        dp_axes=axes, use_tp=use_tp)
+    d = cache_defs(cfg, 1, 1)
+    for k in (key,) if isinstance(key, str) else key:
+        d = d[k]
+    spec = resolve_spec(d.spec, use_fsdp=False, dp_axes=axes, use_tp=use_tp)
     return spec_placements(fit_spec_to_shape(tuple(shape), spec, mesh), mesh)
 
 
@@ -382,26 +401,46 @@ def _seq_split(placements, mesh) -> bool:
     return placements[m].is_shard(_KV_SEQ)
 
 
-def _kv_cache_shards(cfg: ArchConfig, mesh, caches):
-    """(this rank's shard of every decode cache, the slot count S where
-    "model" splits the caches' sequence, else None) for the split
-    decode.  A cache placed otherwise than :func:`_cache_placements`
-    says raises: the split decode moves no cache."""
-    shards, seq = {}, None
-    for key, c in caches.items():
-        want = _cache_placements(cfg, mesh, key, c.shape)
+def _whole_over_model(placements, mesh) -> tuple:
+    from torch.distributed.tensor import Replicate
+    m = mesh.mesh_dim_names.index("model")
+    return tuple(Replicate() if i == m else p
+                 for i, p in enumerate(placements))
+
+
+def _whole_cache(path, tp: TensorParallel) -> bool:
+    """Whether the split serving steps take and return the cache leaf at
+    ``path`` whole over "model" (a Mamba2 block's conv tail, whose even
+    shards of channels cut across a rank's; its state where the block is
+    not split) rather than as this rank's shard."""
+    return path[-1] == "conv" or (path[-1] == "state" and not tp.ssm)
+
+
+def _cache_shards(cfg: ArchConfig, mesh, caches, tp: TensorParallel):
+    """(this rank's part of every decode cache, the slot count S where
+    "model" splits the K/V caches' sequence, else None) for the split
+    decode: its shard, or the leaf whole over "model" where
+    :func:`_whole_cache` says (one all-gather).  A cache placed otherwise
+    than :func:`_cache_placements` says raises: the split decode moves
+    no K/V cache and no state."""
+    flat = tree_flatten_with_path(caches)
+    parts, seq = [], None
+    for path, c in flat:
+        want = _cache_placements(cfg, mesh, path, c.shape)
+        take = (_whole_over_model(want, mesh) if _whole_cache(path, tp)
+                else want)
         if not _is_dtensor(c):
-            shards[key] = _local_shard(c, mesh, want)
+            parts.append(_local_shard(c, mesh, take))
         elif tuple(c.placements) != tuple(want):
             raise ValueError(
-                f"decode cache {key!r} of shape {tuple(c.shape)} is placed as "
-                f"{tuple(c.placements)}; the split decode takes it as "
-                f"{tuple(want)} (cache_defs + fit_spec_to_shape)")
+                f"decode cache {'/'.join(path)!r} of shape {tuple(c.shape)} "
+                f"is placed as {tuple(c.placements)}; the split decode takes "
+                f"it as {tuple(want)} (cache_defs + fit_spec_to_shape)")
         else:
-            shards[key] = c.to_local()
-        if _seq_split(want, mesh):
+            parts.append(c.redistribute(mesh, take).to_local())
+        if path[-1] in ("kv", "shared_kv") and _seq_split(want, mesh):
             seq = c.shape[_KV_SEQ]
-    return shards, seq
+    return tree_unflatten([path for path, _ in flat], parts), seq
 
 
 def _prefill_kv_shards(c, tp: TensorParallel, cfg: ArchConfig,
@@ -428,30 +467,33 @@ def _prefill_kv_shards(c, tp: TensorParallel, cfg: ArchConfig,
     return join_kv_heads(parts, tp, cfg)
 
 
-def _kv_global(t, cfg: ArchConfig, mesh, key: str, full_batch: int,
-               seq: int):
-    """The DTensor of batch ``full_batch`` and ``seq`` slots, placed by
-    :func:`_cache_placements`, whose rank-local shard is ``t``."""
+def _cache_global(t, cfg: ArchConfig, mesh, path, shape,
+                  tp: TensorParallel):
+    """The DTensor of global ``shape``, placed by
+    :func:`_cache_placements`, whose rank-local part is ``t``: its shard,
+    or the leaf whole over "model" (:func:`_whole_cache`; a local
+    slice)."""
     from torch.distributed.tensor import DTensor
-    shape = list(t.shape)
-    shape[2], shape[_KV_SEQ] = full_batch, seq
-    return DTensor.from_local(t, mesh,
-                              _cache_placements(cfg, mesh, key, shape),
-                              run_check=False)
+    want = _cache_placements(cfg, mesh, path, shape)
+    if _whole_cache(path, tp):
+        return DTensor.from_local(t, mesh, _whole_over_model(want, mesh),
+                                  run_check=False).redistribute(mesh, want)
+    return DTensor.from_local(t, mesh, want, run_check=False)
 
 
 def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
     rank's slice of the batch, the logits as a DTensor sharded on the
-    batch.  Under the ``tp`` profile, for the dense, VLM and MoE
+    batch.  Under the ``tp`` profile, for the dense, VLM, MoE and SSM
     families, both split over "model" as the train step does
-    (``_tensor_parallel``)
-    and the K/V caches go in and out placed as ``cache_defs`` +
-    ``fit_spec_to_shape`` say: decode reads and writes each rank's shard
-    and moves no cache; prefill turns its per-rank kv heads into that
-    layout (:func:`_prefill_kv_shards`).  Otherwise the parameters are
-    gathered and the caches go in and out as each rank's slice of the
-    batch."""
+    (``_tensor_parallel``) and the caches go in and out placed as
+    ``cache_defs`` + ``fit_spec_to_shape`` say: decode reads and writes
+    each rank's shard of the K/V caches and the Mamba2 states and moves
+    neither (a conv tail comes in whole over "model": one all-gather);
+    prefill turns its per-rank kv heads into that layout
+    (:func:`_prefill_kv_shards`), and its states are each rank's heads.
+    Otherwise the parameters are gathered and the caches go in and out
+    as each rank's slice of the batch."""
     axes = _batch_axes(cfg, mesh)
     dims = _cache_batch_dims(cfg)
     tp, roles = _tensor_parallel(cfg, mesh, params)
@@ -475,21 +517,26 @@ def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     if caches is None:
         seq = batch["tokens"].shape[1]
         logits, new_caches = call(work, local_batch, tp, split)
-        seq_split = _seq_split(_cache_placements(
-            cfg, mesh, "kv", (cfg.num_layers, 2, b, seq, cfg.num_kv_heads,
-                              cfg.head_dim)), mesh)
-        new_caches = {k: _prefill_kv_shards(c, tp, cfg, seq_split)
-                      for k, c in new_caches.items()}
+        if "kv" in new_caches:
+            seq_split = _seq_split(_cache_placements(
+                cfg, mesh, "kv", (cfg.num_layers, 2, b, seq,
+                                  cfg.num_kv_heads, cfg.head_dim)), mesh)
+            new_caches["kv"] = _prefill_kv_shards(new_caches["kv"], tp, cfg,
+                                                  seq_split)
     else:
-        shards, kv_seq = _kv_cache_shards(cfg, mesh, caches)
-        seq = next(iter(caches.values())).shape[_KV_SEQ]
+        shards, kv_seq = _cache_shards(cfg, mesh, caches, tp)
+        seq = caches["kv"].shape[_KV_SEQ] if "kv" in caches else 1
         logits, new_caches = call(work, shards, local_batch,
                                   dataclasses.replace(tp, kv_seq=kv_seq),
                                   split)
     del work
+    flat = tree_flatten_with_path(new_caches)
+    shapes = dict(tree_flatten_with_path(
+        tree_map(lambda d: d.shape, cache_defs(cfg, b, seq))))
     return (_batch_global(logits, 0, axes, mesh, b),
-            {k: _kv_global(c, cfg, mesh, k, b, seq)
-             for k, c in new_caches.items()})
+            tree_unflatten([path for path, _ in flat], [
+                _cache_global(t, cfg, mesh, path, shapes[path], tp)
+                for path, t in flat]))
 
 
 def widen_mesh_caches(cfg: ArchConfig, caches: dict) -> dict:

@@ -14,6 +14,16 @@ them: ``C·B``, the inter-chunk term, the state update and the state.
 
 Decode is the O(1) recurrence on a carried (B, H, P, N) state plus a
 (B, k-1, conv_dim) causal-conv tail.
+
+Under tensor-parallel compute (``tp`` with ``tp.ssm``,
+``models.parallel``) each rank computes its heads: ``in_proj`` and the
+conv are the rank's column ranges (``parallel.ssm_column_ranges``), B
+and C are made whole by one all-gather after the projection, the gated
+RMSNorm's Σy² is summed over the group and ``out_proj`` is
+row-parallel.  The state (prefill's out, decode's in and out) holds the
+rank's heads; the conv tail holds every channel (prefill gathers its x
+channels, decode the new token's raw [x | B | C]).  A group of one runs
+the plain path.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ import torch
 import torch.nn.functional as F
 
 from .layers import ParamDef, rmsnorm
+from .parallel import (copy_to_model, gather_from_model, gather_to_model,
+                       reduce_from_model, ssm_column_ranges, sum_over_model)
 
 __all__ = ["ssm_dims", "mamba_defs", "mamba_apply", "mamba_decode_step",
            "mamba_cache_defs"]
@@ -52,16 +64,62 @@ def mamba_defs(cfg) -> dict:
     }
 
 
-def _in_proj(params, x, cfg):
+def _split(tp) -> bool:
+    """Whether ``tp`` splits the Mamba2 block over more than one rank."""
+    return tp is not None and tp.ssm and tp.size > 1
+
+
+def _in_proj(params, x, cfg, tp=None):
+    """(z, raw xbc, dt); under a split, the rank's columns: raw xbc is
+    then [x_r | B_r | C_r]."""
     d_inner, nheads, conv_dim = ssm_dims(cfg)
+    m = tp.size if _split(tp) else 1
     zxbcdt = x @ params["in_proj"].to(x.dtype)
-    return torch.split(zxbcdt, [d_inner, conv_dim, nheads], dim=-1)
+    return torch.split(zxbcdt, [d_inner // m, conv_dim // m, nheads // m],
+                       dim=-1)
 
 
 def _split_xbc(xbc, cfg):
-    d_inner, _, _ = ssm_dims(cfg)
     n = cfg.ssm_state
-    return torch.split(xbc, [d_inner, n, n], dim=-1)  # xs, B, C
+    return torch.split(xbc, [xbc.shape[-1] - 2 * n, n, n], dim=-1)  # xs, B, C
+
+
+def _rank_major(t, widths, m):
+    """``t``'s last dimension holds m ranks' parts of ``widths`` each,
+    rank after rank ([a_0 b_0 | a_1 b_1 | ...]): regrouped part after
+    part ([a_0 a_1 ... | b_0 b_1 ...])."""
+    lead = t.shape[:-1]
+    parts = torch.split(t.reshape(*lead, m, sum(widths)), list(widths), -1)
+    return torch.cat([p.reshape(*lead, m * w)
+                      for p, w in zip(parts, widths)], -1)
+
+
+def _whole_bc(xbc, cfg, tp):
+    """This rank's raw [x_r | B_r | C_r] as [x_r | B | C]: B and C
+    gathered over the group (their gradient summed, then this rank's
+    share)."""
+    n, m = cfg.ssm_state, tp.size
+    xr, bc = torch.split(xbc, [xbc.shape[-1] - 2 * n // m, 2 * n // m], -1)
+    bc = _rank_major(gather_to_model(bc, -1, tp), (n // m, n // m), m)
+    return torch.cat([xr, bc], -1)
+
+
+def _rank_channels(t, cfg, tp):
+    """The conv channels [x_r | B | C] of this rank from every channel."""
+    ranges = ssm_column_ranges(cfg, tp.size, tp.rank)["conv"]
+    return torch.cat([t[..., lo:hi] for lo, hi in ranges], -1)
+
+
+def _gated_norm(y, z, gamma, cfg, tp, eps: float = 1e-6):
+    """``rmsnorm(y * silu(z), gamma)`` over d_inner; under a split over
+    the rank's slice of it, Σy² summed over the group."""
+    h = y * F.silu(z)
+    if not _split(tp):
+        return rmsnorm(h, gamma)
+    hf = h.float()
+    var = sum_over_model(torch.sum(hf * hf, -1, keepdim=True), tp)
+    var = var / ssm_dims(cfg)[0]
+    return (hf * torch.rsqrt(var + eps) * gamma.float()).to(h.dtype)
 
 
 def _causal_conv(xbc, conv_w, conv_b):
@@ -127,27 +185,41 @@ def _ssd_chunked(xh, dt, a_log, bmat, cmat, chunk):
     return y[:, :s_orig], state
 
 
-def mamba_apply(params, x, cfg) -> Tuple[torch.Tensor, dict]:
+def mamba_apply(params, x, cfg, tp=None,
+                with_cache: bool = True) -> Tuple[torch.Tensor, dict]:
     """Full-sequence Mamba2 block.
 
-    x: (B,S,d) -> (y (B,S,d), cache {conv tail (raw xbc), ssm state}).
+    x: (B,S,d) -> (y (B,S,d), cache {conv tail (raw xbc), ssm state}, or
+    None without ``with_cache``).  Under a split (``tp``) the parameters
+    are the rank's columns and rows, the state the rank's heads and the
+    conv tail every channel.
     """
     b, s, d = x.shape
-    d_inner, nheads, conv_dim = ssm_dims(cfg)
-    z, xbc_raw, dt = _in_proj(params, x, cfg)
-    conv_tail = xbc_raw[:, -(cfg.ssm_conv - 1):, :]
+    split = _split(tp)
+    if split:
+        x = copy_to_model(x, tp)
+    z, xbc_raw, dt = _in_proj(params, x, cfg, tp)
+    if split:
+        xbc_raw = _whole_bc(xbc_raw, cfg, tp)
+    conv_tail = xbc_raw[:, -(cfg.ssm_conv - 1):, :] if with_cache else None
+    if split and with_cache:   # the x channels of every rank
+        n2 = 2 * cfg.ssm_state
+        xr, bc = torch.split(conv_tail, [conv_tail.shape[-1] - n2, n2], -1)
+        conv_tail = torch.cat([gather_from_model(xr, -1, tp), bc], -1)
     xbc = _causal_conv(xbc_raw, params["conv_w"].to(x.dtype),
                        params["conv_b"].to(x.dtype))
     xs, bmat, cmat = _split_xbc(xbc, cfg)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
-    xh = xs.reshape(b, s, nheads, cfg.ssm_head_dim)
+    xh = xs.reshape(b, s, -1, cfg.ssm_head_dim)
     y, state = _ssd_chunked(xh, dt, params["A_log"], bmat, cmat,
                             cfg.ssm_chunk)
     y = y + params["D"].to(x.dtype)[None, None, :, None] * xh
-    y = y.reshape(b, s, d_inner)
-    y = rmsnorm(y * F.silu(z), params["norm_g"])
-    cache = {"conv": conv_tail, "state": state}
-    return y @ params["out_proj"].to(x.dtype), cache
+    y = _gated_norm(y.reshape(b, s, -1), z, params["norm_g"], cfg, tp)
+    out = y @ params["out_proj"].to(x.dtype)
+    if split:
+        out = reduce_from_model(out, tp)
+    cache = {"conv": conv_tail, "state": state} if with_cache else None
+    return out, cache
 
 
 def mamba_cache_defs(cfg, batch: int) -> dict:
@@ -160,28 +232,38 @@ def mamba_cache_defs(cfg, batch: int) -> dict:
     }
 
 
-def mamba_decode_step(params, cache, x, cfg):
-    """One-token decode. x: (B,1,d); cache: {conv (B,k-1,C), state (B,H,P,N)}."""
+def mamba_decode_step(params, cache, x, cfg, tp=None):
+    """One-token decode. x: (B,1,d); cache: {conv (B,k-1,C), state (B,H,P,N)}.
+
+    Under a split (``tp``) the state is the rank's heads and the conv
+    tail every channel, in and out: one all-gather makes the new token's
+    raw [x | B | C] whole."""
     b = x.shape[0]
-    d_inner, nheads, conv_dim = ssm_dims(cfg)
-    z, xbc, dt = _in_proj(params, x, cfg)                    # (B,1,...)
+    split = _split(tp)
+    z, xbc, dt = _in_proj(params, x, cfg, tp)                # (B,1,...)
+    if split:
+        n, m = cfg.ssm_state, tp.size
+        xbc = _rank_major(gather_from_model(xbc, -1, tp),
+                          (xbc.shape[-1] - 2 * n // m, n // m, n // m), m)
     window = torch.cat([cache["conv"].to(x.dtype), xbc], dim=1)
     conv_w = params["conv_w"].to(x.dtype)
-    y = (window * conv_w[None, :, :]).sum(dim=1, keepdim=True)
+    mine = _rank_channels(window, cfg, tp) if split else window
+    y = (mine * conv_w[None, :, :]).sum(dim=1, keepdim=True)
     xbc_t = F.silu(y + params["conv_b"].to(x.dtype)[None, None, :])
     xs, bmat, cmat = _split_xbc(xbc_t, cfg)
     dt = F.softplus(dt.float() + params["dt_bias"].float())  # (B,1,H)
     A = -torch.exp(params["A_log"].float())
     decay = torch.exp(dt[:, 0, :] * A[None, :])              # (B,H)
-    xh = xs.reshape(b, nheads, cfg.ssm_head_dim)
+    xh = xs.reshape(b, -1, cfg.ssm_head_dim)
     dx = xh * dt[:, 0, :, None].to(xh.dtype)
     state = (cache["state"] * decay[:, :, None, None] +
              torch.einsum("bn,bhp->bhpn", bmat[:, 0].float(), dx.float()))
     yh = torch.einsum("bn,bhpn->bhp", cmat[:, 0].float(), state)
     yh = yh.to(x.dtype) + params["D"].to(x.dtype)[None, :, None] * xh
-    y = yh.reshape(b, 1, d_inner)
-    y = rmsnorm(y * F.silu(z), params["norm_g"])
+    y = _gated_norm(yh.reshape(b, 1, -1), z, params["norm_g"], cfg, tp)
     out = y @ params["out_proj"].to(x.dtype)
+    if split:
+        out = reduce_from_model(out, tp)
     new_cache = {"conv": window[:, 1:, :].to(cache["conv"].dtype),
                  "state": state}
     return out, new_cache

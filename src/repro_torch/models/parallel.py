@@ -3,12 +3,13 @@ counterpart of GSPMD partitioning the reference's jitted step over the
 leaves that ``pspec_tree`` tags "model", and its decode over the K/V
 caches that ``cache_defs`` splits on the sequence).
 
-The dense, VLM and MoE families' layers (the VLM's blocks are the dense
-blocks; the MoE's attention, embedding and head too) take their
-"model"-tagged weights as each rank's shard and add the collectives
-that make the result the plain one, on the "model" process group
-(explicit ``torch.distributed`` calls; DTensor has no rules for
-attention's einsums, the checkpoints or the chunked loss):
+The dense, VLM, MoE and SSM families' layers (the VLM's blocks are the
+dense blocks; the MoE's attention, embedding and head too, and the
+SSM's embedding and head) take their "model"-tagged weights as each
+rank's shard and add the collectives that make the result the plain
+one, on the "model" process group (explicit ``torch.distributed``
+calls; DTensor has no rules for attention's einsums, the checkpoints or
+the chunked loss):
 
 * attention: ``wq`` / ``wk`` / ``wv`` column-parallel by whole heads,
   each rank attending over its own heads, ``wo`` row-parallel and one
@@ -27,6 +28,21 @@ attention's einsums, the checkpoints or the chunked loss):
   combine through :func:`copy_to_model` (each rank combines only its
   experts, so their gradient is summed over the group), the router's
   input and the load-balance term do not;
+* the Mamba2 block (``models.mamba2``): the heads split across the
+  ranks (rank r computes heads [r·H/size, (r+1)·H/size)).  Each rank
+  computes its heads' z, x and dt columns of ``in_proj`` and its share
+  of the B and C columns (both read by every head), which one
+  all-gather makes whole after the projection (:func:`gather_to_model`:
+  the gradient summed over the group, then this rank's share); the
+  causal conv runs on the rank's x channels and on the whole B and C,
+  the SSD scan on the rank's heads (the head-independent ``C·Bᵀ`` whole
+  on every rank); the gated RMSNorm's Σy² over d_inner is all-reduced
+  (:func:`sum_over_model`: its gradient all-reduced too), and
+  ``out_proj`` is row-parallel with one all-reduce.  The reference's
+  "model" shards of ``in_proj`` (the fused [z | x | B | C | dt]
+  columns) and of the conv (its [x | B | C] channels) are even splits
+  that cut across those bounds, so a rank gathers these leaves and
+  selects its column ranges (``("slice", dim, ranges)``);
 * the embedding (split on d): each rank looks up its slice of d, then an
   all-gather along d;
 * the head: untied and split on the vocabulary, a vocabulary-parallel
@@ -43,12 +59,20 @@ attention's einsums, the checkpoints or the chunked loss):
   max, the sum of exponentials and the partial outputs all-reduced by
   :func:`model_all_reduce`); only the rank that holds slot S-1 writes
   it.  ``wo``, the MLP, the embedding and the head split as above.
+  The Mamba2 block's decode reads and writes this rank's heads of the
+  state cache; its conv tail comes in and goes out whole over the
+  group, and the new token's raw [x | B | C] channels are made whole by
+  one all-gather.
 
 The collectives carry gradients in pairs (Megatron-LM's f and g):
 :func:`copy_to_model` is the identity forward and an all-reduce
 backward, :func:`reduce_from_model` an all-reduce forward and the
 identity backward, :func:`gather_from_model` an all-gather forward and
-this rank's slice backward.  Activations and their gradients between
+this rank's slice backward.  Where every rank reads the gathered
+tensor with its own heads, its gradient differs from rank to rank:
+:func:`gather_to_model` sums it over the group before the slice, and
+:func:`sum_over_model` (a sum every rank's slice reads) all-reduces both
+ways.  Activations and their gradients between
 the split blocks are the same on every rank of the group, so a
 checkpoint's recompute issues the same collectives in the same order on
 every rank.  No sum uses atomics.  A group of one rank issues no
@@ -60,8 +84,10 @@ group).
 :func:`tp_layout` decides, per architecture and group size, which blocks
 split; :func:`leaf_roles` says, per parameter leaf, whether the step
 hands it over as its "model" shard (``("split", dim)``), gathered
-(``("gathered",)``) or gathered and sliced to the kv heads this rank
-reads (``("slice", dim, start, stop)``).
+(``("gathered",)``) or gathered and sliced to the column ranges this
+rank computes with, concatenated in order (``("slice", dim, ((start,
+stop), ...))``: the kv heads its q heads read, or a Mamba2 block's
+heads and its share of B and C).
 """
 from __future__ import annotations
 
@@ -75,9 +101,10 @@ from repro_torch._tree import tree_flatten_with_path, tree_unflatten
 
 __all__ = ["TensorParallel", "BatchSplit", "tp_layout", "leaf_roles",
            "gathered_leaves", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "gather_from_batch", "model_all_reduce",
-           "gather_kv_heads", "join_kv_heads", "vocab_logsumexp",
-           "vocab_gold", "kv_head_range"]
+           "gather_from_model", "gather_to_model", "sum_over_model",
+           "gather_from_batch", "model_all_reduce", "gather_kv_heads",
+           "join_kv_heads", "vocab_logsumexp", "vocab_gold",
+           "kv_head_range", "ssm_column_ranges"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,7 +115,8 @@ class TensorParallel:
     split or not; ``head``: "vocab" (untied, split on the vocabulary),
     "rows" (tied ``embed.T``, split on d) or None (gathered).  The MoE
     block's ``experts`` / ``shared`` / ``dense``: the routed experts,
-    the shared MLP and the dense-residual MLP split or not.
+    the shared MLP and the dense-residual MLP split or not.  ``ssm``:
+    the Mamba2 blocks split on their heads or not.
     ``kv_seq`` (decode only): the slot count S of the K/V caches where
     each rank holds its even share of the S slots, rank r slots
     [r·S/size, (r+1)·S/size); None where every rank holds whole
@@ -103,6 +131,7 @@ class TensorParallel:
     experts: bool = False
     shared: bool = False
     dense: bool = False
+    ssm: bool = False
     kv_seq: Optional[int] = None
 
 
@@ -125,13 +154,26 @@ class BatchSplit:
 
 def tp_layout(cfg, size: int) -> Optional[dict]:
     """Which blocks of ``cfg`` split over a "model" group of ``size``
-    ranks; None where the family keeps the gathered step (every family
-    but dense, VLM and MoE, whose attention, embedding and head are the
-    dense ones).  The MoE family has no MLP block; its experts split
-    where ``size`` divides the padded expert count, its shared and
-    dense-residual MLPs where it divides their width."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    ranks; None where the family keeps the gathered step (the hybrid and
+    encoder-decoder families).  The dense, VLM and MoE families'
+    attention, embedding and head are the dense ones.  The MoE family
+    has no MLP block; its experts split where ``size`` divides the
+    padded expert count, its shared and dense-residual MLPs where it
+    divides their width.  The SSM family has neither attention nor MLP;
+    its Mamba2 blocks split where ``size`` divides the heads and the
+    state size N (each rank's share of B and C)."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         return None
+    embed = cfg.d_model % size == 0
+    if cfg.tie_embeddings:
+        head = "rows" if embed else None
+    else:
+        head = "vocab" if cfg.padded_vocab() % size == 0 else None
+    if cfg.family == "ssm":
+        from .mamba2 import ssm_dims
+        return dict(attn="gathered", mlp=False, embed=embed, head=head,
+                    ssm=ssm_dims(cfg)[1] % size == 0
+                    and cfg.ssm_state % size == 0)
     h, kh = cfg.num_heads, cfg.num_kv_heads
     attn = "gathered"
     if h % size == 0:
@@ -140,11 +182,6 @@ def tp_layout(cfg, size: int) -> Optional[dict]:
             attn = "split"
         elif group % local == 0:
             attn = "kv_slice"
-    embed = cfg.d_model % size == 0
-    if cfg.tie_embeddings:
-        head = "rows" if embed else None
-    else:
-        head = "vocab" if cfg.padded_vocab() % size == 0 else None
     if cfg.family != "moe":
         return dict(attn=attn, mlp=cfg.d_ff % size == 0, embed=embed,
                     head=head)
@@ -164,6 +201,42 @@ def kv_head_range(cfg, size: int, rank: int) -> Tuple[int, int]:
     return (rank * local) // group, ((rank + 1) * local - 1) // group + 1
 
 
+def ssm_column_ranges(cfg, size: int, rank: int) -> dict:
+    """The column ranges [start, stop) of the Mamba2 block's fused
+    leaves that rank ``rank`` of ``size`` computes with, in order:
+    ``"in_proj"`` (its [z | x | B | C | dt] columns: its heads' z, x and
+    dt, its 1/size of B and of C) and ``"conv"`` (the conv's [x | B | C]
+    channels: its heads' x and the whole B and C), adjacent ranges
+    merged."""
+    from .mamba2 import ssm_dims
+    d_inner, nheads, _ = ssm_dims(cfg)
+    n = cfg.ssm_state
+    part = lambda w, base=0: (base + rank * w // size,
+                              base + (rank + 1) * w // size)
+    return {"in_proj": _merged([part(d_inner), part(d_inner, d_inner),
+                                part(n, 2 * d_inner),
+                                part(n, 2 * d_inner + n),
+                                part(nheads, 2 * d_inner + 2 * n)]),
+            "conv": _merged([part(d_inner), (d_inner, d_inner + 2 * n)])}
+
+
+def _merged(ranges) -> tuple:
+    out = []
+    for lo, hi in ranges:
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return tuple(out)
+
+
+def _slice_role(dim: int, ranges: tuple, width: int):
+    """``("slice", dim, ranges)``; a rank's "model" shard where the
+    ranges are the whole leaf (a group of one)."""
+    return ("split", dim) if ranges == ((0, width),) else ("slice", dim,
+                                                           ranges)
+
+
 def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
                rank: int):
     name = path[-1]
@@ -180,7 +253,7 @@ def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
         if layout["attn"] == "split":
             return ("split", -1)
         lo, hi = kv_head_range(cfg, size, rank)
-        return ("slice", -1, lo * cfg.head_dim, hi * cfg.head_dim)
+        return ("slice", -1, ((lo * cfg.head_dim, hi * cfg.head_dim),))
     if block == "mlp" and layout["mlp"]:
         return ("split", -2) if name == "w2" else ("split", -1)
     if block == "moe":
@@ -189,6 +262,17 @@ def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
         kind, _, w = name.partition("_")  # shared_w1, dense_w2, ...
         if kind in ("shared", "dense") and layout[kind]:
             return ("split", -2) if w == "w2" else ("split", -1)
+    if block == "mamba" and layout.get("ssm"):
+        if name == "out_proj":
+            return ("split", -2)
+        if name in ("in_proj", "conv_w", "conv_b"):
+            from .mamba2 import ssm_dims
+            d_inner, nheads, conv_dim = ssm_dims(cfg)
+            key, width = (("in_proj", conv_dim + d_inner + nheads)
+                          if name == "in_proj" else ("conv", conv_dim))
+            return _slice_role(-1, ssm_column_ranges(cfg, size, rank)[key],
+                               width)
+        return ("split", -1)   # A_log, D, dt_bias, norm_g: by heads
     return ("gathered",)
 
 
@@ -207,8 +291,9 @@ def leaf_roles(cfg, defs, size: int, rank: int) -> Optional[Any]:
 
 def gathered_leaves(cfg, defs, size: int) -> List[dict]:
     """The leaves that ``pspec_tree`` tags "model" but that a split step
-    computes gathered (whole, or sliced to the kv heads a rank reads),
-    each with the reason: what the dry run names.  Decode computes the
+    computes gathered (whole, or sliced to the kv heads a rank reads or
+    to a Mamba2 block's columns), each with the reason: what the dry run
+    names.  Decode computes the
     new token's projections with them so, and still attends over each
     rank's slice of the caches' sequence."""
     layout = tp_layout(cfg, size)
@@ -239,6 +324,21 @@ def gathered_leaves(cfg, defs, size: int) -> List[dict]:
         elif path[-1].startswith("dense_"):
             why = (f"dense residual width {cfg.d_ff_dense or cfg.d_ff} on "
                    f"{size} ranks")
+        elif path[-2:-1] == ("mamba",):
+            from .mamba2 import ssm_dims
+            d_inner, nheads, conv_dim = ssm_dims(cfg)
+            if role[0] != "slice":
+                why = (f"{nheads} heads and state size {cfg.ssm_state} on "
+                       f"{size} ranks")
+            elif path[-1] == "in_proj":
+                why = (f"'model' splits the {conv_dim + d_inner + nheads} "
+                       "[z | x | B | C | dt] columns evenly, across their "
+                       "bounds: each rank computes its heads' z, x and dt "
+                       f"and 1/{size} of B and C")
+            else:
+                why = (f"'model' splits the {conv_dim} [x | B | C] channels "
+                       "evenly, across their bounds: each rank convolves "
+                       "its heads' x and the whole B and C")
         elif path == ("head",):
             why = f"padded vocabulary {cfg.padded_vocab()} on {size} ranks"
         else:
@@ -298,6 +398,17 @@ class _GatherFromModel(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.group), None
+
+
 def copy_to_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """Identity forward; the gradient all-reduced over the group."""
     if tp.size == 1:
@@ -319,6 +430,23 @@ def gather_from_model(x: torch.Tensor, dim: int,
     if tp.size == 1:
         return x
     return _GatherFromModel.apply(x, dim, tp.group, tp.size, tp.rank)
+
+
+def gather_to_model(x: torch.Tensor, dim: int,
+                    tp: TensorParallel) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim`` in rank order, for
+    every rank to read with its own heads: the gradient summed over the
+    group (each rank's differs), then this rank's slice."""
+    return copy_to_model(gather_from_model(x, dim, tp), tp)
+
+
+def sum_over_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sum over the group of a partial sum that every rank's slice
+    reads (the gated RMSNorm's Σy²): the gradient summed over the group
+    too."""
+    if tp.size == 1:
+        return x
+    return _SumOverModel.apply(x, tp.group)
 
 
 def gather_from_batch(x: torch.Tensor, split: BatchSplit) -> torch.Tensor:

@@ -20,9 +20,10 @@ generated token (as ``examples/serve_decode.py`` does).  With
 converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
 
 Under tensor-parallel compute (``tp``, ``models.parallel``; the dense,
-VLM and MoE families) the forward paths take each rank's shards of the
-split leaves; decode takes each rank's slice of the caches' sequence
-where ``tp.kv_seq`` says so, and its batch's slice on a mesh.  On a mesh
+VLM, MoE and SSM families) the forward paths take each rank's shards of
+the split leaves; decode takes each rank's slice of the caches' sequence
+where ``tp.kv_seq`` says so, the SSM family's state caches on the rank's
+heads, and its batch's slice on a mesh.  On a mesh
 the MoE block forms its token groups over the global batch
 (``batch_split``, ``models.moe``).
 """
@@ -260,7 +261,7 @@ def shared_attn_defs(cfg) -> dict:
 def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None,
                 batch_split=None):
     """Apply one layer (``mode`` "train", "prefill" or "decode"; ``tp``
-    the dense, VLM and MoE families' tensor-parallel compute;
+    the dense, VLM, MoE and SSM families' tensor-parallel compute;
     ``batch_split`` the data ranks of the MoE block's token groups).
     Returns (x, new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -282,10 +283,11 @@ def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None,
     # ssm / hybrid mamba layer
     h = rmsnorm(x, params["ln1"])
     if mode == "decode":
-        m, new_state = mamba_decode_step(params["mamba"], kv_cache, h, cfg)
+        m, new_state = mamba_decode_step(params["mamba"], kv_cache, h, cfg,
+                                         tp)
     else:
-        m, state = mamba_apply(params["mamba"], h, cfg)
-        new_state = state if mode == "prefill" else None
+        m, new_state = mamba_apply(params["mamba"], h, cfg, tp,
+                                   with_cache=mode == "prefill")
     return x + m, new_state, aux
 
 
@@ -438,11 +440,12 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
     ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense,
-    VLM and MoE families): the parameters are this rank's shards of the
-    split leaves, the hidden states the full ones (the VLM's patch
+    VLM, MoE and SSM families): the parameters are this rank's shards of
+    the split leaves, the hidden states the full ones (the VLM's patch
     embeddings overwrite the first positions after the embedding's
-    gather, on every rank), and prefill's K/V caches hold this rank's kv
-    heads.  ``batch_split``
+    gather, on every rank), prefill's K/V caches hold this rank's kv
+    heads and its SSM states this rank's heads (the conv tails every
+    channel).  ``batch_split``
     (:class:`~repro_torch.models.parallel.BatchSplit`): the data ranks
     ``inputs`` is this rank's slice of, for the MoE block's groups.
     """
@@ -540,18 +543,19 @@ def _encdec_forward(params, inputs, cfg, mode):
 # ------------------------------------------------------------------- decode
 
 def _check_tp(tp, cfg):
-    if tp is not None and cfg.family not in ("dense", "vlm", "moe"):
-        raise ValueError(f"tensor-parallel compute covers the dense, VLM "
-                         f"and MoE families, not {cfg.family!r}")
+    if tp is not None and cfg.family not in ("dense", "vlm", "moe", "ssm"):
+        raise ValueError(f"tensor-parallel compute covers the dense, VLM, "
+                         f"MoE and SSM families, not {cfg.family!r}")
 
 
 def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
     """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches).
 
-    ``tp`` (dense, VLM and MoE families): the parameters are this rank's
-    shards of the split leaves and, with ``tp.kv_seq``, the K/V caches
-    this rank's slice of their sequence, returned so.  ``batch_split``:
-    as :func:`lm_forward`'s."""
+    ``tp`` (dense, VLM, MoE and SSM families): the parameters are this
+    rank's shards of the split leaves and, with ``tp.kv_seq``, the K/V
+    caches this rank's slice of their sequence, returned so; the SSM
+    states this rank's heads and the conv tails every channel.
+    ``batch_split``: as :func:`lm_forward`'s."""
     _check_tp(tp, cfg)
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
 
@@ -563,7 +567,7 @@ def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
 
     if cfg.family == "ssm":
         x, new_st, _ = _run_layers(params["layers"], x, cfg, "decode",
-                                   caches["mamba"])
+                                   caches["mamba"], tp=tp)
         return rmsnorm(x, params["final_norm"]), {"mamba": new_st}
 
     if cfg.family == "hybrid":

@@ -9,9 +9,13 @@ convergence.
 
 ``compress`` / ``decompress`` / ``ef_roundtrip`` are elementwise and one
 reduction in plain PyTorch (the reference has no Pallas kernel here):
-``torch.round`` rounds half to even as ``jnp.round`` does, and f32
-division is correctly rounded in both, so q, the scale and the residual
-equal the reference's bit for bit.  :func:`compressed_psum` is the
+``torch.round`` rounds half to even as ``jnp.round`` does, and every
+division is a correctly rounded f32 quotient, as XLA's, so q, the scale
+and the residual equal the reference's bit for bit on the CPU and on the
+card.  A divisor is a tensor on the dividend's device (:func:`_div`):
+CUDA's true division by a Python scalar multiplies by the scalar's f32
+reciprocal, which can put ``max|x| / 127`` one ulp off the quotient and
+flip ``round(x / scale)`` at a half.  :func:`compressed_psum` is the
 collective, on a ``torch.distributed`` group where the reference runs
 ``psum`` inside ``shard_map``.
 """
@@ -27,8 +31,14 @@ __all__ = ["compress", "decompress", "ef_roundtrip", "compressed_psum",
            "init_error_state"]
 
 
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` correctly rounded on every device: ``b`` as a 0-d f32
+    tensor on ``a``'s device, which CUDA divides elementwise."""
+    return a / torch.tensor(b, dtype=torch.float32, device=a.device)
+
+
 def compress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+    scale = _div(torch.clamp(torch.max(torch.abs(x)), min=1e-12), 127.0)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
 
@@ -76,4 +86,4 @@ def compressed_psum(g: torch.Tensor, e: torch.Tensor, group):
     deq = decompress(q, s)
     new_e = gf - deq
     dist.all_reduce(deq, group=pg)
-    return deq / dist.get_world_size(pg), new_e
+    return _div(deq, float(dist.get_world_size(pg))), new_e

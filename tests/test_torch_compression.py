@@ -7,7 +7,14 @@ decades, shapes, a carried error); mirrors of
 ``tests/test_substrates.py``'s ``test_compression_bounded_error`` and
 ``test_error_feedback_accumulates_exactly``, at their tolerances.  The
 collective ``compressed_psum`` is in ``tests/test_torch_distributed.py``.
+On ``chip_smoke.int8_scale_ties`` (a max whose quotient by 127 is not
+its product with the f32 reciprocal of 127, and elements at halves of
+both int8 grids) the scale is the quotient and q the reference's; the
+card is held to these bits in ``tests/test_torch_gpu.py``.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 from hypcompat import given, settings, st
@@ -19,6 +26,11 @@ from repro.optim import compression as ref  # noqa: E402
 
 from repro_torch.optim.compression import (compress, decompress,  # noqa: E402
                                            ef_roundtrip, init_error_state)
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 def bits(a):
@@ -71,6 +83,24 @@ def test_round_half_to_even_and_clip_as_reference():
     rq, rs = ref.compress(jnp.asarray(z))
     np.testing.assert_array_equal(bits(s.numpy()), bits(rs))
     assert not q.any()
+
+
+def test_scale_ties_equal_reference():
+    """The scale is the correctly rounded ``max|x| / 127`` (not the
+    product with ``fl(1/127)``, one ulp off here), and q, the payload and
+    the residual the reference's, on inputs where the two scales part
+    the int8 values of half the elements."""
+    x, quot, prod, parted = chip_smoke.int8_scale_ties()
+    assert quot != prod and parted > len(x) // 4, (quot, prod, parted)
+    q, s = compress(torch.from_numpy(x))
+    rq, rs = ref.compress(jnp.asarray(x))
+    np.testing.assert_array_equal(bits(s.numpy()), bits(np.float32(quot)))
+    np.testing.assert_array_equal(bits(s.numpy()), bits(rs))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(rq))
+    e = np.zeros_like(x)   # g + e is x: the ties hold
+    for a, b in zip(ef_roundtrip(torch.from_numpy(x), torch.from_numpy(e)),
+                    ref.ef_roundtrip(jnp.asarray(x), jnp.asarray(e))):
+        np.testing.assert_array_equal(bits(a.numpy()), bits(b))
 
 
 def test_init_error_state_is_f32_zeros_of_each_leaf():

@@ -60,7 +60,9 @@ equals the plain step bit for bit and a save from the mesh restores
 through ``remesh`` bit for bit; decode's combine across two gloo ranks
 on the card lies within the CPU test's bars of ``decode_attention``;
 ``compress`` and ``ef_roundtrip`` on the card equal the CPU's bit for
-bit.  The launch analysis (phase 15): a
+bit, and so does a one-rank ``compressed_psum``, also on inputs where a
+scale taken as a product with ``fl(1/127)`` would part from the
+quotient (``chip_smoke.int8_scale_ties``).  The launch analysis (phase 15): a
 reduced train step on the card counts the FLOPs of its fake-tensor trace
 exactly, and a reduced cell of the dry run on a fake 8-rank world gives
 the same dict on fake CUDA tensors as on fake CPU tensors.
@@ -778,6 +780,38 @@ def test_compression_on_the_card_equals_the_cpu(cuda):
         for a, b in zip(ef_roundtrip(g.to(cuda), e.to(cuda)),
                         ef_roundtrip(g, e)):
             assert chip_smoke.bit_equal(a.cpu(), b)
+
+
+def test_int8_scale_on_the_card_is_the_quotient(cuda):
+    """On ``chip_smoke.int8_scale_ties`` (a max whose quotient by 127 and
+    product with ``fl(1/127)`` part by an ulp, elements at halves of
+    both int8 grids, found on the host) ``compress``, ``ef_roundtrip``
+    and a one-rank ``compressed_psum`` on the card equal the CPU's bit
+    for bit, the scale being the quotient."""
+    import torch.distributed as dist
+    from repro_torch.optim.compression import (compress, compressed_psum,
+                                               ef_roundtrip)
+    x, quot, prod, parted = chip_smoke.int8_scale_ties()
+    assert quot != prod and parted > 0, (quot, prod, parted)
+    g = torch.from_numpy(x)
+    e = torch.zeros_like(g)
+    q, s = compress(g.to(cuda))
+    q_c, s_c = compress(g)
+    assert float(s_c) == float(quot), (float(s_c), quot)
+    assert chip_smoke.bit_equal(s.cpu(), s_c), (float(s), float(s_c))
+    assert torch.equal(q.cpu(), q_c)
+    for a, b in zip(ef_roundtrip(g.to(cuda), e.to(cuda)), ef_roundtrip(g, e)):
+        assert chip_smoke.bit_equal(a.cpu(), b)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        group = dist.new_group([0])
+        card = compressed_psum(g.to(cuda), e.to(cuda), group)
+        host = compressed_psum(g, e, group)
+        for a, b in zip(card, host):
+            assert chip_smoke.bit_equal(a.cpu(), b)
+    finally:
+        dist.destroy_process_group()
 
 
 # Phase 15: the launch analysis.
