@@ -285,7 +285,16 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               columns and the conv's 2,304 channels sliced to the
               rank's, the gated norm's Σy² on the group) at its full
               width and 4 layers, 4 × 1,024 tokens, the states on their
-              heads (``ssm_split_bits``).  Then a save from the mesh,
+              heads (``ssm_split_bits``); and so zamba2-7b (the hybrid
+              family: the shared block's ``w_in`` split on its output d
+              and gathered, its 32 / 32 heads and d_ff 14,336 split, the
+              Mamba2 groups and tail on their 112 heads) at its full
+              width and 13 layers (2 groups of 6, so that the shared
+              block's gradient sums two applications, and a tail of 1;
+              1.47e9 parameters, bf16, f32 moments), 2 × 1,024 tokens,
+              the ``shared_kv`` caches on their sequence, with the train
+              step's peak memory (``hybrid_split_bits``).  Then a save
+              from the mesh,
               ``plan_mesh(1, 1)``, a restore
               through ``remesh`` and one more step, its loss bit for bit
               with the uninterrupted run's; ``ef_roundtrip`` and
@@ -338,6 +347,10 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               qwen2-moe-a2.7b × decode_32k (last): the MoE family's
               split decode (experts across the 16 "model" ranks, the
               token group of the global batch of 128 across the 16 data
+              ranks), beside its gathered decode (``GATHERED_STEP``).
+              zamba2-7b × decode_32k (last): the hybrid family's split
+              decode (the ``shared_kv`` caches on their sequence, the
+              shared block and the Mamba2 layers on the 16 "model"
               ranks), beside its gathered decode (``GATHERED_STEP``).
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
@@ -3474,8 +3487,9 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
     """``make_prefill_step`` on ``batch`` (tokens, and the VLM's patch
     embeddings) then ``steps`` greedy ``make_decode_step``
     calls on a mesh state (``widen_mesh_caches`` between them; the
-    caches placed as ``cache_defs`` lays them out: K/V split on the
-    sequence over "model", SSM states on their heads) against ``ModelZoo.prefill`` then ``.decode`` on
+    caches placed as ``cache_defs`` lays them out: K/V (the hybrid's
+    ``shared_kv`` too) split on the sequence over "model", SSM states on
+    their heads) against ``ModelZoo.prefill`` then ``.decode`` on
     ``widen_caches`` on the plain state, both fed the plain chain's greedy
     tokens: the logits and caches bit for bit after the prefill and
     every step, and the CUDA-event ms of each decode call (the widen
@@ -3530,8 +3544,9 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
         placements.append(cache_layout(got_c))
     return dict(batch=list(batch["tokens"].shape), steps=steps,
                 bits_differ=diff,
-                cache_seq=(int(want_c["kv"].shape[3]) if "kv" in want_c
-                           else None),
+                cache_seq=next((int(want_c[k].shape[3])
+                                for k in ("kv", "shared_kv") if k in want_c),
+                               None),
                 cache_placements=placements,
                 split_ms=times["split"], plain_ms=times["plain"],
                 split_ms_median=float(np.median(times["split"])),
@@ -3640,6 +3655,30 @@ def ssm_split_bits(mesh, dev, layers=4, b=4, s=1024, decode_steps=2) -> dict:
     from repro_torch.data import DataConfig, SyntheticPipeline
     cfg = dataclasses.replace(get_config("mamba2-370m"), num_layers=layers)
     batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=11)
+                              ).batch(0, device=dev)
+    return split_bits_at_width(cfg, mesh, dev, batch,
+                               {"tokens": batch["tokens"]}, decode_steps)
+
+
+def hybrid_split_bits(mesh, dev, layers=13, b=2, s=1024,
+                      decode_steps=2) -> dict:
+    """zamba2-7b at its full width (d 3,584; the shared block's 32 q / 32
+    kv heads of 112 and d_ff 14,336 on ``concat(x, x0)`` through
+    ``w_in``; Mamba2 layers of 112 heads of 64, state 64, chunk 256;
+    vocabulary 32,000; bf16 parameters, f32 moments) and ``layers``
+    layers (13: 2 groups of 6, so that the shared block's gradient sums
+    two applications, and a tail of 1) on ``mesh``: one split train step
+    over ``b`` × ``s`` tokens, the split prefill and ``decode_steps``
+    split decode steps (the ``shared_kv`` caches on their sequence, the
+    states on their heads, the conv tails on their channels) against the
+    plain calls, bit for bit (``split_bits_at_width``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    from repro_torch.models.transformer import hybrid_layout
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=layers)
+    assert hybrid_layout(cfg) == (2, 6, 1), hybrid_layout(cfg)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=13)
                               ).batch(0, device=dev)
     return split_bits_at_width(cfg, mesh, dev, batch,
                                {"tokens": batch["tokens"]}, decode_steps)
@@ -3769,6 +3808,8 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
         row["qwen2_moe_a2_7b"] = moe_split_bits(mesh, dev)
         # 3e. the SSM family: heads, the gated norm's sum, the state cache
         row["mamba2_370m"] = ssm_split_bits(mesh, dev)
+        # 3f. the hybrid family: the shared block and the Mamba2 groups
+        row["zamba2_7b"] = hybrid_split_bits(mesh, dev)
         emit(dict(phase="mesh", part="split", nvidia_smi=smi,
                   split_layout=row["split_layout"],
                   train_step_ms_median=row["mesh_step_ms_median"],
@@ -3777,10 +3818,12 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                   reduced_llama3_8b=row["reduced_llama3_8b"],
                   pixtral_12b=row["pixtral_12b"],
                   qwen2_moe_a2_7b=row["qwen2_moe_a2_7b"],
-                  mamba2_370m=row["mamba2_370m"]))
+                  mamba2_370m=row["mamba2_370m"],
+                  zamba2_7b=row["zamba2_7b"]))
         for part in (row["prefill"], row["reduced_llama3_8b"],
                      row["decode"], row["pixtral_12b"],
-                     row["qwen2_moe_a2_7b"], row["mamba2_370m"]):
+                     row["qwen2_moe_a2_7b"], row["mamba2_370m"],
+                     row["zamba2_7b"]):
             assert not part["bits_differ"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
@@ -3888,7 +3931,7 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
     finally:
         dist.destroy_process_group()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    # 3c-3d's full-width states are gone, but the allocator keeps their
+    # 3c-3f's full-width states are gone, but the allocator keeps their
     # freed blocks cached: hand them back, so that phase 15's trace
     # workers, each with a CUDA context of its own, find room beside its
     # real step
@@ -4034,7 +4077,8 @@ def launch_step_analysis(dev, smi, serve_row, train_row, b=8, s=256):
 # once in worker processes, forked from the server ``main`` started.
 LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
                 ("internlm2-1.8b", "decode_32k"),
-                ("qwen2-moe-a2.7b", "decode_32k"))
+                ("qwen2-moe-a2.7b", "decode_32k"),
+                ("zamba2-7b", "decode_32k"))
 
 # Cells as the step counted them when every rank gathered every leaf over
 # "model" (PERF.md §6): FLOPs per device (the roofline's composition) and
@@ -4044,8 +4088,13 @@ LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
 # commit 7e926fc on the CPU); qwen2-moe-a2.7b × decode_32k's decode, which
 # gathered its experts too (the dry run of the commit 838c564 on the CPU);
 # mamba2-370m × long_500k's decode, which gathered its Mamba2 blocks (the
-# dry run of the commit 22a1a09 with fake CUDA tensors on an H100 host).
+# dry run of the commit 22a1a09 with fake CUDA tensors on an H100 host);
+# zamba2-7b × decode_32k's decode, which gathered its shared block, its
+# Mamba2 layers and its shared_kv caches (the dry run of the commit
+# 7691d16 with fake CUDA tensors on an H100 host).
 GATHERED_STEP = {
+    ("zamba2-7b", "decode_32k"): {"flops_per_device": 2.0410335232e11,
+                                  "bytes_per_device": 166.336930816e9},
     ("mamba2-370m", "long_500k"): {"flops_per_device": 7.60741888e8,
                                    "bytes_per_device": 2.246065664e9},
     ("smollm-135m", "train_4k"): {"flops_per_device": 1.412e14,

@@ -20,11 +20,12 @@ cell this:
      keep the reference's layout.
 
 The step is the port's own (``launch.train``).  Under the ``tp``
-profile the dense, VLM, MoE and SSM families' steps split over 'model'
-as GSPMD partitions the reference's (``models.parallel``): a rank holds
-and computes its share of every split leaf, and decode reads and writes
-its slice of the K/V caches' sequence (``cache_defs``' layout) with
-flash-decoding's combine, or its heads of the Mamba2 states, so its
+profile the dense, VLM, MoE, SSM and hybrid families' steps split over
+'model' as GSPMD partitions the reference's (``models.parallel``): a
+rank holds and computes its share of every split leaf, and decode reads
+and writes its slice of the K/V caches' sequence (``cache_defs``'
+layout; the hybrid's ``shared_kv`` too) with flash-decoding's combine,
+or its heads of the Mamba2 states, so its
 FLOPs, bytes, collectives and peak are one rank's.  A cell's JSON names
 the leaves that stay gathered (``tensor_parallel.gathered_leaves``: a
 block whose heads 'model' does not divide, the kv projections where
@@ -32,7 +33,9 @@ ranks share kv heads, MoE widths 'model' does not divide, a Mamba2
 block's fused ``in_proj`` and conv, sliced to a rank's columns) and,
 for decode, whether 'model' splits the caches' sequence
 (``tensor_parallel.kv_cache``) or the SSM states' heads
-(``tensor_parallel.ssm_cache``).  Other families and profiles gather
+(``tensor_parallel.ssm_cache``).  The hybrid's one-group and two-group
+variants (step 3) are traced with the split too.  The encoder-decoder
+family and other profiles gather
 every parameter, so their FLOPs per device do not divide by 'model',
 and a large architecture can exceed a card's memory: the dry run
 reports that as it is (``exceeds_device_memory``), and skips nothing
@@ -242,9 +245,11 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
     the layout (``tp_layout``; None for a family that keeps the gathered
     step), the "model"-tagged leaves computed gathered, with why, and
     for decode where the K/V caches lie: "split on the sequence" where
-    'model' divides it, else "replicated"; the SSM family's where its
-    states and conv tails lie (on the heads / channels where 'model'
-    divides them, else replicated), with one rank's GB of each."""
+    'model' divides it, else "replicated" (the hybrid's ``shared_kv``
+    likewise); the SSM and hybrid families' where their states and conv
+    tails lie (on the heads / channels where 'model' divides them, else
+    replicated; the hybrid's tail as ``mamba_tail/...``), with one
+    rank's GB of each."""
     if not _profile(cfg, ("data",))[1]:
         return None
     from repro_torch.models import ModelZoo
@@ -260,21 +265,24 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
     mesh = SimpleNamespace(mesh_dim_names=("data", "model"),
                            shape=(256 // model, model))
     caches = ModelZoo(cfg).cache_defs(shape)
-    if "mamba" in caches:
-        where = {}
-        for leaf, d in caches["mamba"].items():
-            place = _cache_placements(cfg, mesh, ("mamba", leaf), d.shape)
+    where = {}
+    for key in ("mamba", "mamba_tail"):
+        for leaf, d in caches.get(key, {}).items():
+            place = _cache_placements(cfg, mesh, (key, leaf), d.shape)
             ranks = math.prod(n for n, p in zip(mesh.shape, place)
                               if p.is_shard())
-            where[leaf] = dict(
+            where[leaf if key == "mamba" else f"{key}/{leaf}"] = dict(
                 model=("split on the " + ("heads" if leaf == "state"
                                           else "channels")
                        if place[1].is_shard() else "replicated"),
                 gb_per_device=math.prod(d.shape) * 2 / ranks / 1e9)
+    if where:
         out["ssm_cache"] = where
-    if "kv" in caches:
-        kv = caches["kv"].shape
-        split = _seq_split(_cache_placements(cfg, mesh, "kv", kv), mesh)
+    for key in ("kv", "shared_kv"):
+        if key not in caches:
+            continue
+        kv = caches[key].shape
+        split = _seq_split(_cache_placements(cfg, mesh, key, kv), mesh)
         out["kv_cache"] = ("split on the sequence" if split
                            else "replicated: 'model' does not divide "
                            f"the sequence of {shape.seq_len}")
@@ -283,16 +291,18 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
         # of the two, and the other lies whole on every "model" rank
         wide = kv[:3] + (kv[3] + 1,) + kv[4:]
         out["kv_cache_gb_per_device"] = {
-            "S": _cache_gb(cfg, mesh, kv),
-            "S+1 (after widen_mesh_caches)": _cache_gb(cfg, mesh, wide)}
+            "S": _cache_gb(cfg, mesh, kv, key),
+            "S+1 (after widen_mesh_caches)": _cache_gb(cfg, mesh, wide,
+                                                       key)}
     return out
 
 
-def _cache_gb(cfg, mesh, kv) -> float:
-    """GB of one rank's shard of a K/V cache of shape ``kv``, placed as
-    the serving steps place it."""
+def _cache_gb(cfg, mesh, kv, key: str = "kv") -> float:
+    """GB of one rank's shard of a K/V cache (``key``: "kv" or the
+    hybrid's "shared_kv") of shape ``kv``, placed as the serving steps
+    place it."""
     ranks = math.prod(n for n, p in zip(mesh.shape, _cache_placements(
-        cfg, mesh, "kv", kv)) if p.is_shard())
+        cfg, mesh, key, kv)) if p.is_shard())
     size = {"bfloat16": 2, "float8_e4m3fn": 1}[cfg.kv_cache_dtype]
     return math.prod(kv) * size / ranks / 1e9
 

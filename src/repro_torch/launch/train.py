@@ -14,7 +14,8 @@ step as explicit collectives, where GSPMD partitions it under
 ``jax.jit``:
 
 1. every rank gathers its parameters from their shards: under the
-   ``tp`` profile, for the dense, VLM, MoE and SSM families, each leaf
+   ``tp`` profile, for the dense, VLM, MoE, SSM and hybrid families
+   (the encoder-decoder family gathers every leaf), each leaf
    that "model" splits in compute (``models.parallel.leaf_roles``) only
    over the other axes — the rank keeps its "model" shard — and every
    other leaf in full;
@@ -59,7 +60,9 @@ The SSM family's states lie on their heads over "model", and prefill
 and decode compute each rank's heads, so neither moves a state; its
 conv tails lie on their channels over "model", which cut across a
 rank's, so decode takes them whole (one all-gather) and both return
-every channel for a local slice;
+every channel for a local slice.  The hybrid family's ``shared_kv``
+caches are K/V caches, its groups' and tail's Mamba2 states and conv
+tails the SSM family's;
 ``widen_mesh_caches`` appends decode's slot and re-places the caches
 (an all-gather over "model" where the sequence was split).  A cache
 placed otherwise raises.  Other families and profiles gather the
@@ -71,7 +74,7 @@ path's.
 The split runs wherever the mesh runs: gloo worlds of CPU processes
 (``tests/test_torch_tp_steps.py``, ``tests/test_torch_tp_decode.py``,
 ``tests/test_torch_tp_vlm.py``, ``tests/test_torch_tp_moe.py``,
-``tests/test_torch_tp_ssm.py``) and
+``tests/test_torch_tp_ssm.py``, ``tests/test_torch_tp_hybrid.py``) and
 NCCL on cards (``chip_smoke.py`` phase 14, one rank).
 
 ``abstract_train_args`` / ``abstract_serve_args`` build a step's
@@ -242,9 +245,10 @@ def _batch_split(cfg: ArchConfig, batch, axes, mesh):
 
 def _tensor_parallel(cfg: ArchConfig, mesh, params):
     """(the ``TensorParallel`` of this rank, the role of every leaf) for a
-    step on ``mesh``; (None, None) where no compute splits over "model"
-    (a profile other than ``tp``, a family ``tp_layout`` leaves gathered,
-    or a mesh with no "model" axis)."""
+    step on ``mesh``, for the dense, VLM, MoE, SSM and hybrid families;
+    (None, None) where no compute splits over "model" (a profile other
+    than ``tp``, the encoder-decoder family, which ``tp_layout`` leaves
+    gathered, or a mesh with no "model" axis)."""
     if not _profile(cfg, dp_axes_of(mesh))[1] or \
             "model" not in mesh.mesh_dim_names:
         return None, None
@@ -484,16 +488,17 @@ def _cache_global(t, cfg: ArchConfig, mesh, path, shape,
 def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
     rank's slice of the batch, the logits as a DTensor sharded on the
-    batch.  Under the ``tp`` profile, for the dense, VLM, MoE and SSM
-    families, both split over "model" as the train step does
+    batch.  Under the ``tp`` profile, for the dense, VLM, MoE, SSM and
+    hybrid families, both split over "model" as the train step does
     (``_tensor_parallel``) and the caches go in and out placed as
     ``cache_defs`` + ``fit_spec_to_shape`` say: decode reads and writes
-    each rank's shard of the K/V caches and the Mamba2 states and moves
-    neither (a conv tail comes in whole over "model": one all-gather);
-    prefill turns its per-rank kv heads into that layout
-    (:func:`_prefill_kv_shards`), and its states are each rank's heads.
-    Otherwise the parameters are gathered and the caches go in and out
-    as each rank's slice of the batch."""
+    each rank's shard of the K/V caches (``kv``, the hybrid's
+    ``shared_kv``) and the Mamba2 states and moves neither (a conv tail
+    comes in whole over "model": one all-gather); prefill turns its
+    per-rank kv heads into that layout (:func:`_prefill_kv_shards`), and
+    its states are each rank's heads.  Otherwise (the encoder-decoder
+    family, other profiles) the parameters are gathered and the caches
+    go in and out as each rank's slice of the batch."""
     axes = _batch_axes(cfg, mesh)
     dims = _cache_batch_dims(cfg)
     tp, roles = _tensor_parallel(cfg, mesh, params)
@@ -514,18 +519,19 @@ def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
         return (_batch_global(logits, 0, axes, mesh, b),
                 tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
                          new_caches, dims))
+    kv_keys = [k for k in ("kv", "shared_kv") if k in cache_defs(cfg, 1, 1)]
     if caches is None:
         seq = batch["tokens"].shape[1]
         logits, new_caches = call(work, local_batch, tp, split)
-        if "kv" in new_caches:
+        defs = cache_defs(cfg, b, seq)
+        for k in kv_keys:
             seq_split = _seq_split(_cache_placements(
-                cfg, mesh, "kv", (cfg.num_layers, 2, b, seq,
-                                  cfg.num_kv_heads, cfg.head_dim)), mesh)
-            new_caches["kv"] = _prefill_kv_shards(new_caches["kv"], tp, cfg,
-                                                  seq_split)
+                cfg, mesh, k, defs[k].shape), mesh)
+            new_caches[k] = _prefill_kv_shards(new_caches[k], tp, cfg,
+                                               seq_split)
     else:
         shards, kv_seq = _cache_shards(cfg, mesh, caches, tp)
-        seq = caches["kv"].shape[_KV_SEQ] if "kv" in caches else 1
+        seq = caches[kv_keys[0]].shape[_KV_SEQ] if kv_keys else 1
         logits, new_caches = call(work, shards, local_batch,
                                   dataclasses.replace(tp, kv_seq=kv_seq),
                                   split)

@@ -3,11 +3,12 @@ counterpart of GSPMD partitioning the reference's jitted step over the
 leaves that ``pspec_tree`` tags "model", and its decode over the K/V
 caches that ``cache_defs`` splits on the sequence).
 
-The dense, VLM, MoE and SSM families' layers (the VLM's blocks are the
-dense blocks; the MoE's attention, embedding and head too, and the
-SSM's embedding and head) take their "model"-tagged weights as each
-rank's shard and add the collectives that make the result the plain
-one, on the "model" process group (explicit ``torch.distributed``
+The dense, VLM, MoE, SSM and hybrid families' layers (the VLM's blocks
+are the dense blocks; the MoE's attention, embedding and head too, the
+SSM's embedding and head, and the hybrid's shared attention block and
+Mamba2 layers the dense and SSM blocks) take their "model"-tagged
+weights as each rank's shard and add the collectives that make the
+result the plain one, on the "model" process group (explicit ``torch.distributed``
 calls; DTensor has no rules for attention's einsums, the checkpoints or
 the chunked loss):
 
@@ -43,6 +44,10 @@ the chunked loss):
   columns) and of the conv (its [x | B | C] channels) are even splits
   that cut across those bounds, so a rank gathers these leaves and
   selects its column ranges (``("slice", dim, ranges)``);
+* the hybrid's shared attention block (zamba2): ``w_in`` column-parallel
+  on its output d, then one all-gather along d (as the embedding), its
+  attention and MLP the dense blocks above; its weights serve every
+  group, so their gradient sums the groups' on each rank's shard;
 * the embedding (split on d): each rank looks up its slice of d, then an
   all-gather along d;
 * the head: untied and split on the vocabulary, a vocabulary-parallel
@@ -62,7 +67,10 @@ the chunked loss):
   The Mamba2 block's decode reads and writes this rank's heads of the
   state cache; its conv tail comes in and goes out whole over the
   group, and the new token's raw [x | B | C] channels are made whole by
-  one all-gather.
+  one all-gather.  The hybrid's ``shared_kv`` caches are K/V caches as
+  above (each rank's slice of the sequence), its Mamba2 states and conv
+  tails (groups and tail) the SSM family's.  The encoder-decoder family
+  keeps the gathered step.
 
 The collectives carry gradients in pairs (Megatron-LM's f and g):
 :func:`copy_to_model` is the identity forward and an all-reduce
@@ -116,9 +124,11 @@ class TensorParallel:
     "rows" (tied ``embed.T``, split on d) or None (gathered).  The MoE
     block's ``experts`` / ``shared`` / ``dense``: the routed experts,
     the shared MLP and the dense-residual MLP split or not.  ``ssm``:
-    the Mamba2 blocks split on their heads or not.
-    ``kv_seq`` (decode only): the slot count S of the K/V caches where
-    each rank holds its even share of the S slots, rank r slots
+    the Mamba2 blocks split on their heads or not.  ``embed`` also
+    splits the hybrid's shared ``w_in`` on its output d (the same
+    condition: "model" divides d).  ``kv_seq`` (decode only): the slot
+    count S of the K/V caches where each rank holds its even share of
+    the S slots, rank r slots
     [r·S/size, (r+1)·S/size); None where every rank holds whole
     caches."""
     group: Any
@@ -154,26 +164,30 @@ class BatchSplit:
 
 def tp_layout(cfg, size: int) -> Optional[dict]:
     """Which blocks of ``cfg`` split over a "model" group of ``size``
-    ranks; None where the family keeps the gathered step (the hybrid and
-    encoder-decoder families).  The dense, VLM and MoE families'
+    ranks; None where the family keeps the gathered step (the
+    encoder-decoder family).  The dense, VLM and MoE families'
     attention, embedding and head are the dense ones.  The MoE family
     has no MLP block; its experts split where ``size`` divides the
     padded expert count, its shared and dense-residual MLPs where it
     divides their width.  The SSM family has neither attention nor MLP;
     its Mamba2 blocks split where ``size`` divides the heads and the
-    state size N (each rank's share of B and C)."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
+    state size N (each rank's share of B and C).  The hybrid family
+    (zamba2) has both parts: its shared block's attention and MLP split
+    as the dense family's, its ``w_in`` with the embedding (where
+    ``size`` divides d), and its Mamba2 layers as the SSM family's."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         return None
     embed = cfg.d_model % size == 0
     if cfg.tie_embeddings:
         head = "rows" if embed else None
     else:
         head = "vocab" if cfg.padded_vocab() % size == 0 else None
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         from .mamba2 import ssm_dims
+        ssm = ssm_dims(cfg)[1] % size == 0 and cfg.ssm_state % size == 0
+    if cfg.family == "ssm":
         return dict(attn="gathered", mlp=False, embed=embed, head=head,
-                    ssm=ssm_dims(cfg)[1] % size == 0
-                    and cfg.ssm_state % size == 0)
+                    ssm=ssm)
     h, kh = cfg.num_heads, cfg.num_kv_heads
     attn = "gathered"
     if h % size == 0:
@@ -182,6 +196,9 @@ def tp_layout(cfg, size: int) -> Optional[dict]:
             attn = "split"
         elif group % local == 0:
             attn = "kv_slice"
+    if cfg.family == "hybrid":
+        return dict(attn=attn, mlp=cfg.d_ff % size == 0, embed=embed,
+                    head=head, ssm=ssm)
     if cfg.family != "moe":
         return dict(attn=attn, mlp=cfg.d_ff % size == 0, embed=embed,
                     head=head)
@@ -244,6 +261,8 @@ def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
         return ("split", -1) if layout["embed"] else ("gathered",)
     if path == ("head",):
         return ("split", -1) if layout["head"] == "vocab" else ("gathered",)
+    if path == ("shared_attn", "w_in"):
+        return ("split", -1) if layout["embed"] else ("gathered",)
     block = path[-2] if len(path) > 1 else None
     if block == "attn" and layout["attn"] != "gathered":
         if name == "wq":
@@ -292,10 +311,10 @@ def leaf_roles(cfg, defs, size: int, rank: int) -> Optional[Any]:
 def gathered_leaves(cfg, defs, size: int) -> List[dict]:
     """The leaves that ``pspec_tree`` tags "model" but that a split step
     computes gathered (whole, or sliced to the kv heads a rank reads or
-    to a Mamba2 block's columns), each with the reason: what the dry run
-    names.  Decode computes the
-    new token's projections with them so, and still attends over each
-    rank's slice of the caches' sequence."""
+    to a Mamba2 block's columns: a hybrid's groups and tail alike), each
+    with the reason: what the dry run names.  Decode computes the new
+    token's projections with them so, and still attends over each rank's
+    slice of the caches' sequence."""
     layout = tp_layout(cfg, size)
     out = []
     for path, d in tree_flatten_with_path(defs):

@@ -20,10 +20,12 @@ generated token (as ``examples/serve_decode.py`` does).  With
 converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
 
 Under tensor-parallel compute (``tp``, ``models.parallel``; the dense,
-VLM, MoE and SSM families) the forward paths take each rank's shards of
-the split leaves; decode takes each rank's slice of the caches' sequence
-where ``tp.kv_seq`` says so, the SSM family's state caches on the rank's
-heads, and its batch's slice on a mesh.  On a mesh
+VLM, MoE, SSM and hybrid families; the encoder-decoder family still
+gathers) the forward paths take each rank's shards of the split leaves;
+decode takes each rank's slice of the K/V caches' sequence (the
+hybrid's ``shared_kv`` too) where ``tp.kv_seq`` says so, the SSM and
+hybrid families' state caches on the rank's heads, and its batch's
+slice on a mesh.  On a mesh
 the MoE block forms its token groups over the global batch
 (``batch_split``, ``models.moe``).
 """
@@ -261,7 +263,7 @@ def shared_attn_defs(cfg) -> dict:
 def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None,
                 batch_split=None):
     """Apply one layer (``mode`` "train", "prefill" or "decode"; ``tp``
-    the dense, VLM, MoE and SSM families' tensor-parallel compute;
+    the dense, VLM, MoE, SSM and hybrid families' tensor-parallel compute;
     ``batch_split`` the data ranks of the MoE block's token groups).
     Returns (x, new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -291,16 +293,29 @@ def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None,
     return x + m, new_state, aux
 
 
-def shared_attn_apply(params, x, x0, cfg, mode: str, kv_cache=None):
-    h = torch.cat([x, x0], dim=-1) @ params["w_in"].to(x.dtype)
+def shared_attn_apply(params, x, x0, cfg, mode: str, kv_cache=None,
+                      tp=None):
+    """zamba2's shared block on ``concat(x, x0)``.  Under ``tp`` with
+    ``tp.embed`` (d split), ``w_in`` is this rank's columns of its
+    output d, and the projection is gathered along d over the "model"
+    group (as the embedding); attention and the MLP split as the dense
+    blocks."""
+    h = torch.cat([x, x0], dim=-1)
+    split = tp is not None and tp.embed
+    if split:
+        h = copy_to_model(h, tp)
+    h = h @ params["w_in"].to(x.dtype)
+    if split:
+        h = gather_from_model(h, -1, tp)
     h1 = rmsnorm(h, params["ln1"])
     if mode == "decode":
-        a, new_kv = attn_decode_apply(params["attn"], h1, cfg, kv_cache)
+        a, new_kv = attn_decode_apply(params["attn"], h1, cfg, kv_cache,
+                                      tp=tp)
     else:
-        a, kv = attn_apply(params["attn"], h1, cfg, causal=True)
+        a, kv = attn_apply(params["attn"], h1, cfg, causal=True, tp=tp)
         new_kv = torch.stack(kv) if mode == "prefill" else None
     h = h + a
-    h = h + mlp_apply(params["mlp"], rmsnorm(h, params["ln2"]))
+    h = h + mlp_apply(params["mlp"], rmsnorm(h, params["ln2"]), tp)
     return x + h, new_kv
 
 
@@ -440,12 +455,12 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
     ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense,
-    VLM, MoE and SSM families): the parameters are this rank's shards of
-    the split leaves, the hidden states the full ones (the VLM's patch
-    embeddings overwrite the first positions after the embedding's
-    gather, on every rank), prefill's K/V caches hold this rank's kv
-    heads and its SSM states this rank's heads (the conv tails every
-    channel).  ``batch_split``
+    VLM, MoE, SSM and hybrid families): the parameters are this rank's
+    shards of the split leaves, the hidden states the full ones (the
+    VLM's patch embeddings overwrite the first positions after the
+    embedding's gather, on every rank), prefill's K/V caches (the
+    hybrid's ``shared_kv``) hold this rank's kv heads and its SSM states
+    this rank's heads (the conv tails every channel).  ``batch_split``
     (:class:`~repro_torch.models.parallel.BatchSplit`): the data ranks
     ``inputs`` is this rank's slice of, for the MoE block's groups.
     """
@@ -462,7 +477,7 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
         x[:, :pe.shape[1]] = pe   # patch embeddings overwrite the first slots
 
     if cfg.family == "hybrid":
-        return _hybrid_forward(params, x, cfg, mode)
+        return _hybrid_forward(params, x, cfg, mode, tp)
 
     x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode, tp=tp,
                                      batch_split=batch_split)
@@ -473,13 +488,18 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     return x, {key: new_caches}, aux
 
 
-def _hybrid_forward(params, x, cfg, mode):
+def _hybrid_forward(params, x, cfg, mode, tp=None):
+    """The shared block then a group of Mamba2 layers, group by group
+    (each group one checkpoint: its recompute issues the group's
+    collectives again, in the same order on every rank), then the
+    tail."""
     tail = hybrid_layout(cfg)[2]
     x0 = x
 
     def group_body(gp, x):
-        x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg, mode)
-        x, st, a = _run_layers(gp, x, cfg, mode, remat=False)
+        x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg, mode,
+                                  tp=tp)
+        x, st, a = _run_layers(gp, x, cfg, mode, remat=False, tp=tp)
         return x, kv, st, a
 
     group_body = _remat(group_body, cfg, mode)
@@ -490,7 +510,7 @@ def _hybrid_forward(params, x, cfg, mode):
         states.append(st)
         aux = aux + a
     if tail:
-        x, tail_states, a = _run_layers(params["tail"], x, cfg, mode)
+        x, tail_states, a = _run_layers(params["tail"], x, cfg, mode, tp=tp)
         aux = aux + a
     x = rmsnorm(x, params["final_norm"])
     if mode == "train":
@@ -543,18 +563,22 @@ def _encdec_forward(params, inputs, cfg, mode):
 # ------------------------------------------------------------------- decode
 
 def _check_tp(tp, cfg):
-    if tp is not None and cfg.family not in ("dense", "vlm", "moe", "ssm"):
+    if tp is not None and cfg.family not in ("dense", "vlm", "moe", "ssm",
+                                             "hybrid"):
         raise ValueError(f"tensor-parallel compute covers the dense, VLM, "
-                         f"MoE and SSM families, not {cfg.family!r}")
+                         f"MoE, SSM and hybrid families, not {cfg.family!r} "
+                         "(the encoder-decoder family keeps the gathered "
+                         "step)")
 
 
 def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
     """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches).
 
-    ``tp`` (dense, VLM, MoE and SSM families): the parameters are this
-    rank's shards of the split leaves and, with ``tp.kv_seq``, the K/V
-    caches this rank's slice of their sequence, returned so; the SSM
-    states this rank's heads and the conv tails every channel.
+    ``tp`` (dense, VLM, MoE, SSM and hybrid families): the parameters
+    are this rank's shards of the split leaves and, with ``tp.kv_seq``,
+    the K/V caches (the hybrid's ``shared_kv``) this rank's slice of
+    their sequence, returned so; the SSM states (the hybrid's groups'
+    and tail's) this rank's heads and the conv tails every channel.
     ``batch_split``: as :func:`lm_forward`'s."""
     _check_tp(tp, cfg)
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
@@ -578,14 +602,15 @@ def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
                               _unstack(caches["shared_kv"]),
                               _unstack(caches["mamba"])):
             x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg,
-                                      "decode", kv)
-            x, st, _ = _run_layers(gp, x, cfg, "decode", st)
+                                      "decode", kv, tp)
+            x, st, _ = _run_layers(gp, x, cfg, "decode", st, tp=tp)
             kvs.append(kv)
             states.append(st)
         new_caches = {"shared_kv": torch.stack(kvs), "mamba": _stack(states)}
         if tail:
             x, new_caches["mamba_tail"], _ = _run_layers(
-                params["tail"], x, cfg, "decode", caches["mamba_tail"])
+                params["tail"], x, cfg, "decode", caches["mamba_tail"],
+                tp=tp)
         return rmsnorm(x, params["final_norm"]), new_caches
 
     if cfg.family == "encdec":

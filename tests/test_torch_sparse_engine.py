@@ -303,7 +303,8 @@ def _reference_property_draws(name, examples=3):
 # replayed it from its example database on every later run; the fourth
 # failed with few-class latencies at 2.098e-5 frames, replayed so too.
 REFERENCE_FAILING_EXAMPLES = ((36, 4, 31405, 55738), (34, 5, 1, 0),
-                              (17, 4, 36449, 13), (22, 5, 0, 188))
+                              (17, 4, 36449, 13), (22, 5, 0, 188),
+                              (12, 5, 0, 1))
 
 
 @pytest.mark.parametrize(
