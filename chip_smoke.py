@@ -293,7 +293,16 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               block's gradient sums two applications, and a tail of 1;
               1.47e9 parameters, bf16, f32 moments), 2 × 1,024 tokens,
               the ``shared_kv`` caches on their sequence, with the train
-              step's peak memory (``hybrid_split_bits``).  Then a save
+              step's peak memory (``hybrid_split_bits``); and so
+              seamless-m4t-large-v2 (the encoder-decoder family: the
+              encoder's and the decoder's 16 / 16 heads and d_ff 8,192
+              split, the cross-attention column / row-parallel on its
+              heads, vocabulary 256,206) at its full width and 2 encoder
+              + 2 decoder layers (6.5e8 parameters with the embedding
+              and the head, bf16, f32 moments), 2 × 1,024 tokens over
+              2 × 1,024 source frames, ``kv`` on its sequence and
+              ``cross_kv`` on the source's (``encdec_split_bits``).
+              Then a save
               from the mesh,
               ``plan_mesh(1, 1)``, a restore
               through ``remesh`` and one more step, its loss bit for bit
@@ -344,14 +353,19 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               each rank's slice of the K/V caches' sequence; its FLOPs and
               bytes per device beside the decode that gathered the
               parameters and the caches (``GATHERED_STEP``).
-              qwen2-moe-a2.7b × decode_32k (last): the MoE family's
+              qwen2-moe-a2.7b × decode_32k: the MoE family's
               split decode (experts across the 16 "model" ranks, the
               token group of the global batch of 128 across the 16 data
               ranks), beside its gathered decode (``GATHERED_STEP``).
-              zamba2-7b × decode_32k (last): the hybrid family's split
+              zamba2-7b × decode_32k: the hybrid family's split
               decode (the ``shared_kv`` caches on their sequence, the
               shared block and the Mamba2 layers on the 16 "model"
               ranks), beside its gathered decode (``GATHERED_STEP``).
+              seamless-m4t-large-v2 × decode_32k (last): the
+              encoder-decoder family's split decode (``kv`` and
+              ``cross_kv`` on their sequences, the decoder's blocks on
+              the 16 "model" ranks), beside its gathered decode
+              (``GATHERED_STEP``).
 
 Then the kernels line, the card's ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
@@ -3488,7 +3502,8 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
     embeddings) then ``steps`` greedy ``make_decode_step``
     calls on a mesh state (``widen_mesh_caches`` between them; the
     caches placed as ``cache_defs`` lays them out: K/V (the hybrid's
-    ``shared_kv`` too) split on the sequence over "model", SSM states on
+    ``shared_kv`` too) split on the sequence over "model", the
+    encoder-decoder's ``cross_kv`` on the source's, SSM states on
     their heads) against ``ModelZoo.prefill`` then ``.decode`` on
     ``widen_caches`` on the plain state, both fed the plain chain's greedy
     tokens: the logits and caches bit for bit after the prefill and
@@ -3547,6 +3562,8 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
                 cache_seq=next((int(want_c[k].shape[3])
                                 for k in ("kv", "shared_kv") if k in want_c),
                                None),
+                cross_seq=(int(want_c["cross_kv"].shape[3])
+                           if "cross_kv" in want_c else None),
                 cache_placements=placements,
                 split_ms=times["split"], plain_ms=times["plain"],
                 split_ms_median=float(np.median(times["split"])),
@@ -3555,7 +3572,9 @@ def split_decode_bits(cfg, p_mesh, p_plain, batch, dev, steps=4) -> dict:
 
 def split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps) -> dict:
     """One split train step on ``batch``, the split prefill on ``serve``
-    and ``decode_steps`` split decode steps of ``cfg`` on ``mesh``,
+    (tokens, and the VLM's patch embeddings or the encoder-decoder's
+    source frames, which the train step's ``batch`` carries too) and
+    ``decode_steps`` split decode steps of ``cfg`` on ``mesh``,
     seeded random weights, against the plain calls from the same state,
     bit for bit.  The plain state is the mesh leaves' local tensors (one
     rank's shards are whole: the same storage); the mesh step's new state
@@ -3586,7 +3605,10 @@ def split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps) -> dict:
     del new_p, host
     pre = split_prefill_bits(cfg, p_m, p, serve, dev, reps=1)
     dec = split_decode_bits(cfg, p_m, p, serve, dev, steps=decode_steps)
-    return dict(arch=cfg.name, layers=cfg.num_layers,
+    return dict(arch=cfg.name,
+                layers=(dict(encoder=cfg.encoder_layers,
+                             decoder=cfg.decoder_layers)
+                        if cfg.family == "encdec" else cfg.num_layers),
                 batch=list(batch["tokens"].shape),
                 params=sum(t.numel() for t in tree_leaves(p)),
                 layout=split_layout(cfg, mesh, p_m),
@@ -3597,6 +3619,8 @@ def split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps) -> dict:
                 decode_ms=dict(split=dec["split_ms_median"],
                                plain=dec["plain_ms_median"]),
                 decode_cache_placements=dec["cache_placements"],
+                decode_cache_seq=dict(kv=dec["cache_seq"],
+                                      cross_kv=dec["cross_seq"]),
                 bits_differ=diff + pre["bits_differ"] + dec["bits_differ"])
 
 
@@ -3682,6 +3706,32 @@ def hybrid_split_bits(mesh, dev, layers=13, b=2, s=1024,
                               ).batch(0, device=dev)
     return split_bits_at_width(cfg, mesh, dev, batch,
                                {"tokens": batch["tokens"]}, decode_steps)
+
+
+def encdec_split_bits(mesh, dev, layers=2, b=2, s=1024, src=1024,
+                      decode_steps=2) -> dict:
+    """seamless-m4t-large-v2 at its full width (d 1,024, 16 q / 16 kv
+    heads of 64, d_ff 8,192, vocabulary 256,206 padded to 256,256; bf16
+    parameters, f32 moments) and ``layers`` encoder and ``layers``
+    decoder layers on ``mesh``: one split train step over ``b`` × ``s``
+    tokens and ``b`` × ``src`` source frames, the split prefill and
+    ``decode_steps`` split decode steps (``kv`` on its sequence,
+    ``cross_kv`` on the source's) against the plain calls, bit for bit
+    (``split_bits_at_width``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              encoder_layers=layers, decoder_layers=layers)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=15)
+                              ).batch(0, device=dev)
+    batch["src_embeds"] = torch.randn(
+        (b, src, cfg.d_model), dtype=torch.float32, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2)
+    ).to(torch.bfloat16)
+    serve = {k: batch[k] for k in ("tokens", "src_embeds")}
+    return split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps)
 
 
 def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
@@ -3810,6 +3860,8 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
         row["mamba2_370m"] = ssm_split_bits(mesh, dev)
         # 3f. the hybrid family: the shared block and the Mamba2 groups
         row["zamba2_7b"] = hybrid_split_bits(mesh, dev)
+        # 3g. the encoder-decoder family: the cross-attention, cross_kv
+        row["seamless_m4t_large_v2"] = encdec_split_bits(mesh, dev)
         emit(dict(phase="mesh", part="split", nvidia_smi=smi,
                   split_layout=row["split_layout"],
                   train_step_ms_median=row["mesh_step_ms_median"],
@@ -3819,11 +3871,12 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                   pixtral_12b=row["pixtral_12b"],
                   qwen2_moe_a2_7b=row["qwen2_moe_a2_7b"],
                   mamba2_370m=row["mamba2_370m"],
-                  zamba2_7b=row["zamba2_7b"]))
+                  zamba2_7b=row["zamba2_7b"],
+                  seamless_m4t_large_v2=row["seamless_m4t_large_v2"]))
         for part in (row["prefill"], row["reduced_llama3_8b"],
                      row["decode"], row["pixtral_12b"],
                      row["qwen2_moe_a2_7b"], row["mamba2_370m"],
-                     row["zamba2_7b"]):
+                     row["zamba2_7b"], row["seamless_m4t_large_v2"]):
             assert not part["bits_differ"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
@@ -3931,7 +3984,7 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
     finally:
         dist.destroy_process_group()
     shutil.rmtree(ckpt_dir, ignore_errors=True)
-    # 3c-3f's full-width states are gone, but the allocator keeps their
+    # 3c-3g's full-width states are gone, but the allocator keeps their
     # freed blocks cached: hand them back, so that phase 15's trace
     # workers, each with a CUDA context of its own, find room beside its
     # real step
@@ -4078,7 +4131,8 @@ def launch_step_analysis(dev, smi, serve_row, train_row, b=8, s=256):
 LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
                 ("internlm2-1.8b", "decode_32k"),
                 ("qwen2-moe-a2.7b", "decode_32k"),
-                ("zamba2-7b", "decode_32k"))
+                ("zamba2-7b", "decode_32k"),
+                ("seamless-m4t-large-v2", "decode_32k"))
 
 # Cells as the step counted them when every rank gathered every leaf over
 # "model" (PERF.md §6): FLOPs per device (the roofline's composition) and
@@ -4091,8 +4145,14 @@ LAUNCH_CELLS = (("smollm-135m", "train_4k"), ("mamba2-370m", "long_500k"),
 # dry run of the commit 22a1a09 with fake CUDA tensors on an H100 host);
 # zamba2-7b × decode_32k's decode, which gathered its shared block, its
 # Mamba2 layers and its shared_kv caches (the dry run of the commit
-# 7691d16 with fake CUDA tensors on an H100 host).
+# 7691d16 with fake CUDA tensors on an H100 host);
+# seamless-m4t-large-v2 × decode_32k's decode, which gathered its
+# encoder-decoder blocks and its kv and cross_kv caches (the dry run of
+# the commit ce3747b with fake CUDA tensors on an H100 host).
 GATHERED_STEP = {
+    ("seamless-m4t-large-v2", "decode_32k"): {
+        "flops_per_device": 6.7817701376e10,
+        "bytes_per_device": 110.416910848e9},
     ("zamba2-7b", "decode_32k"): {"flops_per_device": 2.0410335232e11,
                                   "bytes_per_device": 166.336930816e9},
     ("mamba2-370m", "long_500k"): {"flops_per_device": 7.60741888e8,

@@ -20,22 +20,24 @@ cell this:
      keep the reference's layout.
 
 The step is the port's own (``launch.train``).  Under the ``tp``
-profile the dense, VLM, MoE, SSM and hybrid families' steps split over
-'model' as GSPMD partitions the reference's (``models.parallel``): a
-rank holds and computes its share of every split leaf, and decode reads
-and writes its slice of the K/V caches' sequence (``cache_defs``'
-layout; the hybrid's ``shared_kv`` too) with flash-decoding's combine,
-or its heads of the Mamba2 states, so its
+profile every family's step splits over 'model' as GSPMD partitions
+the reference's (``models.parallel``): a rank holds and computes its
+share of every split leaf, and decode reads and writes its slice of the
+K/V caches' sequence (``cache_defs``' layout; the hybrid's
+``shared_kv`` too, and the encoder-decoder's ``cross_kv``, which it
+reads only) with flash-decoding's combine, or its heads of the Mamba2
+states, so its
 FLOPs, bytes, collectives and peak are one rank's.  A cell's JSON names
 the leaves that stay gathered (``tensor_parallel.gathered_leaves``: a
 block whose heads 'model' does not divide, the kv projections where
 ranks share kv heads, MoE widths 'model' does not divide, a Mamba2
 block's fused ``in_proj`` and conv, sliced to a rank's columns) and,
 for decode, whether 'model' splits the caches' sequence
-(``tensor_parallel.kv_cache``) or the SSM states' heads
-(``tensor_parallel.ssm_cache``).  The hybrid's one-group and two-group
-variants (step 3) are traced with the split too.  The encoder-decoder
-family and other profiles gather
+(``tensor_parallel.kv_cache``, ``tensor_parallel.cross_kv_cache``) or
+the SSM states' heads (``tensor_parallel.ssm_cache``).  The hybrid's
+one-group and two-group variants and the encoder-decoder's one-layer
+and two-layer ones (step 3) are traced with the split too.  Other
+profiles gather
 every parameter, so their FLOPs per device do not divide by 'model',
 and a large architecture can exceed a card's memory: the dry run
 reports that as it is (``exceeds_device_memory``), and skips nothing
@@ -242,11 +244,12 @@ def _compose(cfg, r1, r2):
 def _tensor_parallel_report(cfg, shape, model: int = 16):
     """What the step splits over the production mesh's 'model' axis of
     ``model`` ranks: None under a profile that splits no compute; else
-    the layout (``tp_layout``; None for a family that keeps the gathered
-    step), the "model"-tagged leaves computed gathered, with why, and
-    for decode where the K/V caches lie: "split on the sequence" where
-    'model' divides it, else "replicated" (the hybrid's ``shared_kv``
-    likewise); the SSM and hybrid families' where their states and conv
+    the layout (``tp_layout``), the "model"-tagged leaves computed
+    gathered, with why, and for decode where the K/V caches lie: "split
+    on the sequence" where 'model' divides it, else "replicated" (the
+    hybrid's ``shared_kv`` likewise; the encoder-decoder's ``cross_kv``
+    beside it as ``cross_kv_cache``, at S only, since it keeps its
+    length); the SSM and hybrid families' where their states and conv
     tails lie (on the heads / channels where 'model' divides them, else
     replicated; the hybrid's tail as ``mamba_tail/...``), with one
     rank's GB of each."""
@@ -255,10 +258,9 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
     from repro_torch.models import ModelZoo
     defs = ModelZoo(cfg).param_defs()
     decode = shape.kind == "decode"
-    layout = tp_layout(cfg, model)
-    out = {"model": model, "layout": layout,
+    out = {"model": model, "layout": tp_layout(cfg, model),
            "gathered_leaves": gathered_leaves(cfg, defs, model)}
-    if not decode or layout is None:
+    if not decode:
         return out
     # the serving steps' own placement of the caches, on the production
     # mesh's axes and sizes (all that it reads of a mesh)
@@ -278,29 +280,31 @@ def _tensor_parallel_report(cfg, shape, model: int = 16):
                 gb_per_device=math.prod(d.shape) * 2 / ranks / 1e9)
     if where:
         out["ssm_cache"] = where
-    for key in ("kv", "shared_kv"):
+    for key in ("kv", "shared_kv", "cross_kv"):
         if key not in caches:
             continue
         kv = caches[key].shape
         split = _seq_split(_cache_placements(cfg, mesh, key, kv), mesh)
-        out["kv_cache"] = ("split on the sequence" if split
-                           else "replicated: 'model' does not divide "
-                           f"the sequence of {shape.seq_len}")
-        # one rank's K/V cache at this length and after one
-        # widen_mesh_caches (one slot more): "model" divides at most one
-        # of the two, and the other lies whole on every "model" rank
+        name = "cross_kv_cache" if key == "cross_kv" else "kv_cache"
+        out[name] = ("split on the sequence" if split
+                     else "replicated: 'model' does not divide "
+                     f"the sequence of {shape.seq_len}")
+        out[name + "_gb_per_device"] = {"S": _cache_gb(cfg, mesh, kv, key)}
+        if key == "cross_kv":
+            continue   # widen_mesh_caches leaves it as it is
+        # one rank's K/V cache after one widen_mesh_caches (one slot
+        # more): "model" divides at most one of S and S + 1, and the
+        # other lies whole on every "model" rank
         wide = kv[:3] + (kv[3] + 1,) + kv[4:]
-        out["kv_cache_gb_per_device"] = {
-            "S": _cache_gb(cfg, mesh, kv, key),
-            "S+1 (after widen_mesh_caches)": _cache_gb(cfg, mesh, wide,
-                                                       key)}
+        out[name + "_gb_per_device"]["S+1 (after widen_mesh_caches)"] = \
+            _cache_gb(cfg, mesh, wide, key)
     return out
 
 
 def _cache_gb(cfg, mesh, kv, key: str = "kv") -> float:
-    """GB of one rank's shard of a K/V cache (``key``: "kv" or the
-    hybrid's "shared_kv") of shape ``kv``, placed as the serving steps
-    place it."""
+    """GB of one rank's shard of a K/V cache (``key``: "kv", the
+    hybrid's "shared_kv" or the encoder-decoder's "cross_kv") of shape
+    ``kv``, placed as the serving steps place it."""
     ranks = math.prod(n for n, p in zip(mesh.shape, _cache_placements(
         cfg, mesh, key, kv)) if p.is_shard())
     size = {"bfloat16": 2, "float8_e4m3fn": 1}[cfg.kv_cache_dtype]

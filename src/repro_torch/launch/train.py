@@ -14,8 +14,7 @@ step as explicit collectives, where GSPMD partitions it under
 ``jax.jit``:
 
 1. every rank gathers its parameters from their shards: under the
-   ``tp`` profile, for the dense, VLM, MoE, SSM and hybrid families
-   (the encoder-decoder family gathers every leaf), each leaf
+   ``tp`` profile, for every family, each leaf
    that "model" splits in compute (``models.parallel.leaf_roles``) only
    over the other axes — the rank keeps its "model" shard — and every
    other leaf in full;
@@ -40,8 +39,8 @@ step as explicit collectives, where GSPMD partitions it under
 So under ``tp`` ranks along "model" hold and compute their share of the
 split leaves, as GSPMD partitions the reference's step; a block whose
 heads "model" does not divide (smollm-135m's 9 on 16) stays gathered,
-and ``models.parallel.gathered_leaves`` names it.  Other families and
-profiles gather every leaf, and ranks along "model" compute the same
+and ``models.parallel.gathered_leaves`` names it.  Other profiles
+gather every leaf, and ranks along "model" compute the same
 gradients.  A batch leaf is the global batch, the same on every rank,
 or a DTensor (redistributed to that split).
 
@@ -62,10 +61,14 @@ conv tails lie on their channels over "model", which cut across a
 rank's, so decode takes them whole (one all-gather) and both return
 every channel for a local slice.  The hybrid family's ``shared_kv``
 caches are K/V caches, its groups' and tail's Mamba2 states and conv
-tails the SSM family's;
-``widen_mesh_caches`` appends decode's slot and re-places the caches
-(an all-gather over "model" where the sequence was split).  A cache
-placed otherwise raises.  Other families and profiles gather the
+tails the SSM family's.  The encoder-decoder family's ``cross_kv`` lies
+as a K/V cache placed by its own length, the source's: decode reads
+each rank's slice of it and writes none, prefill hands it out as the
+self cache;
+``widen_mesh_caches`` appends decode's slot to the self-attention
+caches and re-places them (an all-gather over "model" where the
+sequence was split); ``cross_kv`` keeps its length and its placement.
+A cache placed otherwise raises.  Other profiles gather the
 parameters and take and return the caches as each rank's slice of the
 batch.  On a one-rank mesh every step equals the plain step bit for
 bit: the split path's operations on a group of one are the plain
@@ -74,7 +77,8 @@ path's.
 The split runs wherever the mesh runs: gloo worlds of CPU processes
 (``tests/test_torch_tp_steps.py``, ``tests/test_torch_tp_decode.py``,
 ``tests/test_torch_tp_vlm.py``, ``tests/test_torch_tp_moe.py``,
-``tests/test_torch_tp_ssm.py``, ``tests/test_torch_tp_hybrid.py``) and
+``tests/test_torch_tp_ssm.py``, ``tests/test_torch_tp_hybrid.py``,
+``tests/test_torch_tp_encdec.py``) and
 NCCL on cards (``chip_smoke.py`` phase 14, one rank).
 
 ``abstract_train_args`` / ``abstract_serve_args`` build a step's
@@ -245,20 +249,16 @@ def _batch_split(cfg: ArchConfig, batch, axes, mesh):
 
 def _tensor_parallel(cfg: ArchConfig, mesh, params):
     """(the ``TensorParallel`` of this rank, the role of every leaf) for a
-    step on ``mesh``, for the dense, VLM, MoE, SSM and hybrid families;
-    (None, None) where no compute splits over "model" (a profile other
-    than ``tp``, the encoder-decoder family, which ``tp_layout`` leaves
-    gathered, or a mesh with no "model" axis)."""
+    step on ``mesh``; (None, None) where no compute splits over "model"
+    (a profile other than ``tp``, or a mesh with no "model" axis)."""
     if not _profile(cfg, dp_axes_of(mesh))[1] or \
             "model" not in mesh.mesh_dim_names:
         return None, None
     m = mesh.mesh_dim_names.index("model")
     size, rank = mesh.size(m), mesh.get_local_rank("model")
-    layout = tp_layout(cfg, size)
-    if layout is None:
-        return None, None
     roles = leaf_roles(cfg, ModelZoo(cfg).param_defs(), size, rank)
-    return TensorParallel(mesh.get_group("model"), size, rank, **layout), roles
+    return (TensorParallel(mesh.get_group("model"), size, rank,
+                           **tp_layout(cfg, size)), roles)
 
 
 def _model_placements(p, mesh, dim: int) -> tuple:
@@ -382,6 +382,7 @@ def _cache_batch_dims(cfg: ArchConfig):
 
 
 _KV_SEQ = 3    # a K/V cache's sequence dimension: (L, 2, B, S, Kh, hd)
+_KV_KEYS = ("kv", "shared_kv", "cross_kv")   # the K/V caches' names
 
 
 def _cache_placements(cfg: ArchConfig, mesh, key, shape) -> tuple:
@@ -421,14 +422,16 @@ def _whole_cache(path, tp: TensorParallel) -> bool:
 
 
 def _cache_shards(cfg: ArchConfig, mesh, caches, tp: TensorParallel):
-    """(this rank's part of every decode cache, the slot count S where
-    "model" splits the K/V caches' sequence, else None) for the split
-    decode: its shard, or the leaf whole over "model" where
-    :func:`_whole_cache` says (one all-gather).  A cache placed otherwise
+    """(this rank's part of every decode cache, the ``TensorParallel``
+    of the split decode) for the split decode: its shard, or the leaf
+    whole over "model" where :func:`_whole_cache` says (one all-gather);
+    ``tp`` with ``kv_seq`` the slot count S where "model" splits the
+    self-attention K/V caches' sequence and ``cross_seq`` the source's
+    where it splits ``cross_kv``'s, else None.  A cache placed otherwise
     than :func:`_cache_placements` says raises: the split decode moves
     no K/V cache and no state."""
     flat = tree_flatten_with_path(caches)
-    parts, seq = [], None
+    parts, seq = [], {}
     for path, c in flat:
         want = _cache_placements(cfg, mesh, path, c.shape)
         take = (_whole_over_model(want, mesh) if _whole_cache(path, tp)
@@ -442,9 +445,12 @@ def _cache_shards(cfg: ArchConfig, mesh, caches, tp: TensorParallel):
                 f"it as {tuple(want)} (cache_defs + fit_spec_to_shape)")
         else:
             parts.append(c.redistribute(mesh, take).to_local())
-        if path[-1] in ("kv", "shared_kv") and _seq_split(want, mesh):
-            seq = c.shape[_KV_SEQ]
-    return tree_unflatten([path for path, _ in flat], parts), seq
+        if path[-1] in _KV_KEYS and _seq_split(want, mesh):
+            seq["cross_seq" if path[-1] == "cross_kv" else "kv_seq"] = \
+                c.shape[_KV_SEQ]
+    return (tree_unflatten([path for path, _ in flat], parts),
+            dataclasses.replace(tp, kv_seq=seq.get("kv_seq"),
+                                cross_seq=seq.get("cross_seq")))
 
 
 def _prefill_kv_shards(c, tp: TensorParallel, cfg: ArchConfig,
@@ -488,17 +494,18 @@ def _cache_global(t, cfg: ArchConfig, mesh, path, shape,
 def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
     rank's slice of the batch, the logits as a DTensor sharded on the
-    batch.  Under the ``tp`` profile, for the dense, VLM, MoE, SSM and
-    hybrid families, both split over "model" as the train step does
-    (``_tensor_parallel``) and the caches go in and out placed as
-    ``cache_defs`` + ``fit_spec_to_shape`` say: decode reads and writes
-    each rank's shard of the K/V caches (``kv``, the hybrid's
-    ``shared_kv``) and the Mamba2 states and moves neither (a conv tail
-    comes in whole over "model": one all-gather); prefill turns its
-    per-rank kv heads into that layout (:func:`_prefill_kv_shards`), and
-    its states are each rank's heads.  Otherwise (the encoder-decoder
-    family, other profiles) the parameters are gathered and the caches
-    go in and out as each rank's slice of the batch."""
+    batch.  Under the ``tp`` profile both split over "model" as the
+    train step does (``_tensor_parallel``) and the caches go in and out
+    placed as ``cache_defs`` + ``fit_spec_to_shape`` say, each leaf by
+    its own global shape (the encoder-decoder's ``cross_kv`` by the
+    source's length): decode reads and writes each rank's shard of the
+    K/V caches (``kv``, the hybrid's ``shared_kv``; it reads
+    ``cross_kv`` and writes none) and the Mamba2 states and moves
+    neither (a conv tail comes in whole over "model": one all-gather);
+    prefill turns its per-rank kv heads into that layout
+    (:func:`_prefill_kv_shards`), and its states are each rank's heads.
+    Otherwise (other profiles) the parameters are gathered and the
+    caches go in and out as each rank's slice of the batch."""
     axes = _batch_axes(cfg, mesh)
     dims = _cache_batch_dims(cfg)
     tp, roles = _tensor_parallel(cfg, mesh, params)
@@ -519,36 +526,44 @@ def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
         return (_batch_global(logits, 0, axes, mesh, b),
                 tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
                          new_caches, dims))
-    kv_keys = [k for k in ("kv", "shared_kv") if k in cache_defs(cfg, 1, 1)]
     if caches is None:
-        seq = batch["tokens"].shape[1]
         logits, new_caches = call(work, local_batch, tp, split)
-        defs = cache_defs(cfg, b, seq)
-        for k in kv_keys:
-            seq_split = _seq_split(_cache_placements(
-                cfg, mesh, k, defs[k].shape), mesh)
-            new_caches[k] = _prefill_kv_shards(new_caches[k], tp, cfg,
-                                               seq_split)
+        shapes = _prefill_cache_shapes(cfg, batch, b)
+        for k in _KV_KEYS:
+            if k in new_caches:
+                seq_split = _seq_split(_cache_placements(
+                    cfg, mesh, k, shapes[(k,)]), mesh)
+                new_caches[k] = _prefill_kv_shards(new_caches[k], tp, cfg,
+                                                   seq_split)
     else:
-        shards, kv_seq = _cache_shards(cfg, mesh, caches, tp)
-        seq = caches[kv_keys[0]].shape[_KV_SEQ] if kv_keys else 1
-        logits, new_caches = call(work, shards, local_batch,
-                                  dataclasses.replace(tp, kv_seq=kv_seq),
-                                  split)
+        shards, tp = _cache_shards(cfg, mesh, caches, tp)
+        shapes = {path: c.shape for path, c in tree_flatten_with_path(caches)}
+        logits, new_caches = call(work, shards, local_batch, tp, split)
     del work
     flat = tree_flatten_with_path(new_caches)
-    shapes = dict(tree_flatten_with_path(
-        tree_map(lambda d: d.shape, cache_defs(cfg, b, seq))))
     return (_batch_global(logits, 0, axes, mesh, b),
             tree_unflatten([path for path, _ in flat], [
                 _cache_global(t, cfg, mesh, path, shapes[path], tp)
                 for path, t in flat]))
 
 
+def _prefill_cache_shapes(cfg: ArchConfig, batch, b: int) -> dict:
+    """The global shape of every cache leaf a prefill of ``batch``
+    returns, by path: ``cache_defs`` at the prompt's length, the
+    encoder-decoder's ``cross_kv`` at the source's."""
+    shapes = dict(tree_flatten_with_path(tree_map(
+        lambda d: d.shape, cache_defs(cfg, b, batch["tokens"].shape[1]))))
+    if ("cross_kv",) in shapes:
+        shapes[("cross_kv",)] = cache_defs(
+            cfg, b, batch["src_embeds"].shape[1])["cross_kv"].shape
+    return shapes
+
+
 def widen_mesh_caches(cfg: ArchConfig, caches: dict) -> dict:
     """``models.widen_caches`` for caches on a mesh (DTensors, as the
     serving steps return them): one empty slot appended to every
-    self-attention K/V cache, the result placed by
+    self-attention K/V cache (the encoder-decoder's ``cross_kv`` keeps
+    its length and its placement), the result placed by
     :func:`_cache_placements` for its new length.  What moves: where
     "model" splits the sequence, the cache is first gathered over
     "model" (an all-gather: every rank then holds its batch slice of

@@ -3,14 +3,14 @@ counterpart of GSPMD partitioning the reference's jitted step over the
 leaves that ``pspec_tree`` tags "model", and its decode over the K/V
 caches that ``cache_defs`` splits on the sequence).
 
-The dense, VLM, MoE, SSM and hybrid families' layers (the VLM's blocks
-are the dense blocks; the MoE's attention, embedding and head too, the
-SSM's embedding and head, and the hybrid's shared attention block and
-Mamba2 layers the dense and SSM blocks) take their "model"-tagged
-weights as each rank's shard and add the collectives that make the
-result the plain one, on the "model" process group (explicit ``torch.distributed``
-calls; DTensor has no rules for attention's einsums, the checkpoints or
-the chunked loss):
+Every family's layers (the VLM's blocks are the dense blocks; the
+MoE's attention, embedding and head too, the SSM's embedding and head,
+the hybrid's shared attention block and Mamba2 layers the dense and SSM
+blocks, and the encoder-decoder's encoder and decoder blocks the dense
+blocks) take their "model"-tagged weights as each rank's shard and add
+the collectives that make the result the plain one, on the "model"
+process group (explicit ``torch.distributed`` calls; DTensor has no
+rules for attention's einsums, the checkpoints or the chunked loss):
 
 * attention: ``wq`` / ``wk`` / ``wv`` column-parallel by whole heads,
   each rank attending over its own heads, ``wo`` row-parallel and one
@@ -48,6 +48,11 @@ the chunked loss):
   on its output d, then one all-gather along d (as the embedding), its
   attention and MLP the dense blocks above; its weights serve every
   group, so their gradient sums the groups' on each rank's shard;
+* the encoder-decoder's cross-attention (``xattn``): split as attention
+  above, q from the decoder's stream and k / v from the encoder's
+  output, each through :func:`copy_to_model` (the encoder's output
+  feeds every decoder layer, so its gradient is summed over the group
+  in each);
 * the embedding (split on d): each rank looks up its slice of d, then an
   all-gather along d;
 * the head: untied and split on the vocabulary, a vocabulary-parallel
@@ -69,8 +74,10 @@ the chunked loss):
   group, and the new token's raw [x | B | C] channels are made whole by
   one all-gather.  The hybrid's ``shared_kv`` caches are K/V caches as
   above (each rank's slice of the sequence), its Mamba2 states and conv
-  tails (groups and tail) the SSM family's.  The encoder-decoder family
-  keeps the gathered step.
+  tails (groups and tail) the SSM family's.  The encoder-decoder's
+  ``cross_kv`` is read, never written: each rank attends over its slice
+  of the source's sequence (``TensorParallel.cross_seq``) with the same
+  combine, q gathered along the heads as above.
 
 The collectives carry gradients in pairs (Megatron-LM's f and g):
 :func:`copy_to_model` is the identity forward and an all-reduce
@@ -127,10 +134,13 @@ class TensorParallel:
     the Mamba2 blocks split on their heads or not.  ``embed`` also
     splits the hybrid's shared ``w_in`` on its output d (the same
     condition: "model" divides d).  ``kv_seq`` (decode only): the slot
-    count S of the K/V caches where each rank holds its even share of
-    the S slots, rank r slots
+    count S of the self-attention K/V caches where each rank holds its
+    even share of the S slots, rank r slots
     [r·S/size, (r+1)·S/size); None where every rank holds whole
-    caches."""
+    caches.  ``cross_seq`` (decode only): the same for the
+    encoder-decoder's ``cross_kv``, whose length is the source's and
+    which ``widen_mesh_caches`` leaves as it is, so that it can lie
+    split while the self cache lies whole."""
     group: Any
     size: int
     rank: int
@@ -143,6 +153,7 @@ class TensorParallel:
     dense: bool = False
     ssm: bool = False
     kv_seq: Optional[int] = None
+    cross_seq: Optional[int] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,12 +173,12 @@ class BatchSplit:
         return math.prod(self.sizes)
 
 
-def tp_layout(cfg, size: int) -> Optional[dict]:
+def tp_layout(cfg, size: int) -> dict:
     """Which blocks of ``cfg`` split over a "model" group of ``size``
-    ranks; None where the family keeps the gathered step (the
-    encoder-decoder family).  The dense, VLM and MoE families'
-    attention, embedding and head are the dense ones.  The MoE family
-    has no MLP block; its experts split where ``size`` divides the
+    ranks.  The dense, VLM, MoE and encoder-decoder families' attention (the encoder-decoder's
+    self-attention and cross-attention alike), embedding and head are
+    the dense ones, and the encoder-decoder's MLPs the dense MLP.  The
+    MoE family has no MLP block; its experts split where ``size`` divides the
     padded expert count, its shared and dense-residual MLPs where it
     divides their width.  The SSM family has neither attention nor MLP;
     its Mamba2 blocks split where ``size`` divides the heads and the
@@ -175,8 +186,6 @@ def tp_layout(cfg, size: int) -> Optional[dict]:
     (zamba2) has both parts: its shared block's attention and MLP split
     as the dense family's, its ``w_in`` with the embedding (where
     ``size`` divides d), and its Mamba2 layers as the SSM family's."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        return None
     embed = cfg.d_model % size == 0
     if cfg.tie_embeddings:
         head = "rows" if embed else None
@@ -264,7 +273,7 @@ def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
     if path == ("shared_attn", "w_in"):
         return ("split", -1) if layout["embed"] else ("gathered",)
     block = path[-2] if len(path) > 1 else None
-    if block == "attn" and layout["attn"] != "gathered":
+    if block in ("attn", "xattn") and layout["attn"] != "gathered":
         if name == "wq":
             return ("split", -1)
         if name == "wo":
@@ -295,13 +304,10 @@ def _leaf_role(path: Tuple[str, ...], cfg, layout: dict, size: int,
     return ("gathered",)
 
 
-def leaf_roles(cfg, defs, size: int, rank: int) -> Optional[Any]:
+def leaf_roles(cfg, defs, size: int, rank: int) -> Any:
     """The role of every leaf of the ``ParamDef`` tree ``defs`` on rank
-    ``rank`` of a "model" group of ``size`` (see the module docstring);
-    None where :func:`tp_layout` is None."""
+    ``rank`` of a "model" group of ``size`` (see the module docstring)."""
     layout = tp_layout(cfg, size)
-    if layout is None:
-        return None
     flat = tree_flatten_with_path(defs)
     return tree_unflatten([p for p, _ in flat],
                           [_leaf_role(p, cfg, layout, size, rank)
@@ -320,16 +326,13 @@ def gathered_leaves(cfg, defs, size: int) -> List[dict]:
     for path, d in tree_flatten_with_path(defs):
         if "model" not in d.spec:
             continue
-        role = (_leaf_role(path, cfg, layout, size, 0) if layout is not None
-                else ("gathered",))
+        role = _leaf_role(path, cfg, layout, size, 0)
         if role[0] == "split":
             continue
-        if layout is None:
-            why = f"family {cfg.family!r} keeps the gathered step"
-        elif path[-2:-1] == ("attn",) and role[0] == "slice":
+        if path[-2:-1] in (("attn",), ("xattn",)) and role[0] == "slice":
             why = (f"{cfg.num_kv_heads} kv heads on {size} ranks: each rank "
                    "computes the kv heads its q heads read")
-        elif path[-2:-1] == ("attn",):
+        elif path[-2:-1] in (("attn",), ("xattn",)):
             why = f"{cfg.num_heads} q heads on {size} ranks"
         elif path[-2:-1] == ("mlp",):
             why = f"d_ff {cfg.d_ff} on {size} ranks"

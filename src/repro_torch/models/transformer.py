@@ -19,11 +19,11 @@ generated token (as ``examples/serve_decode.py`` does).  With
 ``cfg.kv_cache_dtype="float8_e4m3fn"`` the cache is stored in f8,
 converted as ``ml_dtypes`` does (:func:`to_kv_dtype`).
 
-Under tensor-parallel compute (``tp``, ``models.parallel``; the dense,
-VLM, MoE, SSM and hybrid families; the encoder-decoder family still
-gathers) the forward paths take each rank's shards of the split leaves;
+Under tensor-parallel compute (``tp``, ``models.parallel``; every
+family) the forward paths take each rank's shards of the split leaves;
 decode takes each rank's slice of the K/V caches' sequence (the
-hybrid's ``shared_kv`` too) where ``tp.kv_seq`` says so, the SSM and
+hybrid's ``shared_kv`` too) where ``tp.kv_seq`` says so and of the
+encoder-decoder's ``cross_kv`` where ``tp.cross_seq`` does, the SSM and
 hybrid families' state caches on the rank's heads, and its batch's
 slice on a mesh.  On a mesh
 the MoE block forms its token groups over the global batch
@@ -188,22 +188,47 @@ def attn_decode_apply(params, x, cfg, kv_cache, *, use_rope: bool = True,
     return out @ params["wo"].to(x.dtype), new_kv
 
 
-def cross_attn_apply(params, x, cfg, memory=None, kv_cache=None):
-    """Encoder-decoder cross attention; memory (B, S_src, d) or cached K/V."""
+def cross_attn_apply(params, x, cfg, memory=None, kv_cache=None, tp=None):
+    """Encoder-decoder cross attention; memory (B, S_src, d) or cached K/V
+    (2, B, S_src, Kh, hd), which decode reads and never writes.
+
+    Under ``tp`` with a split attention block the weights are this
+    rank's heads (``wo`` its rows).  With ``memory``: q from ``x`` and
+    k / v from ``memory``, each through ``copy_to_model``; the returned
+    (k, v) hold this rank's kv heads and the output is all-reduced over
+    the "model" group.  With ``kv_cache`` (decode): q is computed
+    column-parallel and gathered along the heads, and ``wo`` takes this
+    rank's slice of the whole output, all-reduced.  With
+    ``tp.cross_seq`` the cache is this rank's slice of the S_src =
+    ``cross_seq`` slots and attention is
+    :func:`~repro_torch.models.attention.decode_attention_split`."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, hd)
-    if kv_cache is None:
-        sk = memory.shape[1]
-        k = (memory @ params["wk"].to(x.dtype)).reshape(b, sk, kh, hd)
-        v = (memory @ params["wv"].to(x.dtype)).reshape(b, sk, kh, hd)
-        new_cache = (k, v)
-    else:
+    hd = cfg.head_dim
+    split = tp is not None and tp.attn != "gathered"
+    decode = kv_cache is not None
+    if split and not decode:
+        x, memory = copy_to_model(x, tp), copy_to_model(memory, tp)
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, -1, hd)
+    if decode:
+        if split:
+            q = gather_from_model(q, 2, tp)
         k, v = kv_cache[0].to(x.dtype), kv_cache[1].to(x.dtype)
         new_cache = kv_cache
-    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
-    out = out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
-    return out, new_cache
+    else:
+        sk = memory.shape[1]
+        k = (memory @ params["wk"].to(x.dtype)).reshape(b, sk, -1, hd)
+        v = (memory @ params["wv"].to(x.dtype)).reshape(b, sk, -1, hd)
+        new_cache = (k, v)
+    if decode and tp is not None and tp.cross_seq is not None:
+        out = decode_attention_split(q, k, v, tp.rank * k.shape[1], tp)
+    else:
+        out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk)
+    out = out.reshape(b, s, -1)
+    if split and decode:
+        n = params["wo"].shape[0]
+        out = out.narrow(-1, tp.rank * n, n)
+    out = out @ params["wo"].to(x.dtype)
+    return (reduce_from_model(out, tp) if split else out), new_cache
 
 
 # ----------------------------------------------------------------------- mlp
@@ -263,7 +288,7 @@ def shared_attn_defs(cfg) -> dict:
 def block_apply(params, x, cfg, mode: str, kv_cache=None, tp=None,
                 batch_split=None):
     """Apply one layer (``mode`` "train", "prefill" or "decode"; ``tp``
-    the dense, VLM, MoE, SSM and hybrid families' tensor-parallel compute;
+    the tensor-parallel compute;
     ``batch_split`` the data ranks of the MoE block's token groups).
     Returns (x, new cache or None in train mode, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -454,13 +479,14 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
 
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
     `inputs`: tokens (B,S) [+ patch_embeds for vlm | src_embeds for encdec].
-    ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, dense,
-    VLM, MoE, SSM and hybrid families): the parameters are this rank's
-    shards of the split leaves, the hidden states the full ones (the
-    VLM's patch embeddings overwrite the first positions after the
-    embedding's gather, on every rank), prefill's K/V caches (the
-    hybrid's ``shared_kv``) hold this rank's kv heads and its SSM states
-    this rank's heads (the conv tails every channel).  ``batch_split``
+    ``tp`` (:class:`~repro_torch.models.parallel.TensorParallel`, every
+    family): the parameters are this rank's shards of the split leaves,
+    the hidden states the full ones (the VLM's patch embeddings
+    overwrite the first positions after the embedding's gather, on every
+    rank; the encoder-decoder's encoder output too), prefill's K/V
+    caches (the hybrid's ``shared_kv``, the encoder-decoder's
+    ``cross_kv``) hold this rank's kv heads and its SSM states this
+    rank's heads (the conv tails every channel).  ``batch_split``
     (:class:`~repro_torch.models.parallel.BatchSplit`): the data ranks
     ``inputs`` is this rank's slice of, for the MoE block's groups.
     """
@@ -468,7 +494,7 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     if mode not in ("train", "prefill"):
         raise ValueError(f"lm_forward: mode={mode!r}")
     if cfg.family == "encdec":
-        return _encdec_forward(params, inputs, cfg, mode)
+        return _encdec_forward(params, inputs, cfg, mode, tp)
 
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
     if cfg.family == "vlm" and cfg.num_patch_tokens and "patch_embeds" in inputs:
@@ -521,36 +547,42 @@ def _hybrid_forward(params, x, cfg, mode, tp=None):
     return x, caches, aux
 
 
-def _enc_layer(lp, x, cfg):
-    a, _ = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg, causal=False)
+def _enc_layer(lp, x, cfg, tp=None):
+    a, _ = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg, causal=False,
+                      tp=tp)
     x = x + a
-    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+    return x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), tp)
 
 
-def _dec_layer(lp, x, memory, cfg, mode):
-    a, kv = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg, causal=True)
+def _dec_layer(lp, x, memory, cfg, mode, tp=None):
+    a, kv = attn_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg, causal=True,
+                       tp=tp)
     x = x + a
     a, xkv = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
-                              memory=memory)
+                              memory=memory, tp=tp)
     x = x + a
-    x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+    x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), tp)
     if mode == "train":
         return x, None
     return x, (torch.stack(kv), torch.stack(xkv))
 
 
-def _encdec_forward(params, inputs, cfg, mode):
+def _encdec_forward(params, inputs, cfg, mode, tp=None):
+    """The encoder over ``src_embeds``, then the decoder over ``tokens``
+    attending to the encoder's output; each encoder and decoder layer one
+    checkpoint, whose recompute issues its collectives again, in the
+    same order on every rank."""
     memory = inputs["src_embeds"].to(torch.bfloat16)
     enc_body = _remat(_enc_layer, cfg, mode)
     for lp in _unstack(params["encoder"]):
-        memory = enc_body(lp, memory, cfg)
+        memory = enc_body(lp, memory, cfg, tp)
     memory = rmsnorm(memory, params["enc_final_norm"])
 
-    x = hidden_for_tokens(params, inputs["tokens"], cfg)
+    x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
     dec_body = _remat(_dec_layer, cfg, mode)
     caches = []
     for lp in _unstack(params["decoder"]):
-        x, c = dec_body(lp, x, memory, cfg, mode)
+        x, c = dec_body(lp, x, memory, cfg, mode, tp)
         caches.append(c)
     x = rmsnorm(x, params["final_norm"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -564,21 +596,22 @@ def _encdec_forward(params, inputs, cfg, mode):
 
 def _check_tp(tp, cfg):
     if tp is not None and cfg.family not in ("dense", "vlm", "moe", "ssm",
-                                             "hybrid"):
+                                             "hybrid", "encdec"):
         raise ValueError(f"tensor-parallel compute covers the dense, VLM, "
-                         f"MoE, SSM and hybrid families, not {cfg.family!r} "
-                         "(the encoder-decoder family keeps the gathered "
-                         "step)")
+                         f"MoE, SSM, hybrid and encoder-decoder families, "
+                         f"not {cfg.family!r}")
 
 
 def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
     """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches).
 
-    ``tp`` (dense, VLM, MoE, SSM and hybrid families): the parameters
-    are this rank's shards of the split leaves and, with ``tp.kv_seq``,
-    the K/V caches (the hybrid's ``shared_kv``) this rank's slice of
-    their sequence, returned so; the SSM states (the hybrid's groups'
-    and tail's) this rank's heads and the conv tails every channel.
+    ``tp`` (every family): the parameters are this rank's shards of the
+    split leaves and, with ``tp.kv_seq``, the K/V caches (the hybrid's
+    ``shared_kv``) this rank's slice of their sequence, returned so;
+    with ``tp.cross_seq`` the encoder-decoder's ``cross_kv`` this
+    rank's slice of the source's sequence, returned as it came; the SSM
+    states (the hybrid's groups' and tail's) this rank's heads and the
+    conv tails every channel.
     ``batch_split``: as :func:`lm_forward`'s."""
     _check_tp(tp, cfg)
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
@@ -619,12 +652,12 @@ def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
                                _unstack(caches["kv"]),
                                _unstack(caches["cross_kv"])):
             a, kv = attn_decode_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
-                                      kv)
+                                      kv, tp=tp)
             x = x + a
             a, _ = cross_attn_apply(lp["xattn"], rmsnorm(x, lp["lnx"]), cfg,
-                                    kv_cache=xkv)
+                                    kv_cache=xkv, tp=tp)
             x = x + a
-            x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]))
+            x = x + mlp_apply(lp["mlp"], rmsnorm(x, lp["ln2"]), tp)
             kvs.append(kv)
         return (rmsnorm(x, params["final_norm"]),
                 {"kv": torch.stack(kvs), "cross_kv": caches["cross_kv"]})

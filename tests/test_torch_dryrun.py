@@ -152,7 +152,7 @@ print(json.dumps(dict(units=roof["units"], tail=roof["tail_units"],
 @pytest.mark.parametrize("arch,profile", [
     ("internlm2-1.8b", "dp"), ("qwen2-moe-a2.7b", "dp"),
     ("mamba2-370m", "dp"), ("seamless-m4t-large-v2", "dp"),
-    ("internlm2-1.8b", "tp")])
+    ("internlm2-1.8b", "tp"), ("seamless-m4t-large-v2", "tp")])
 def test_layer_composition_equals_the_full_trace(arch, profile):
     """With replicated weights (the ``dp`` profile) every count is linear
     in depth and the composition is exact.  With the compute split over

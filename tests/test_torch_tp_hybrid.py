@@ -52,7 +52,7 @@ groups of 2, no tail) and a 5-layer variant with a tail of 1:
     zamba2-7b leaf on 2, 4 and 16 ranks (the published widths: 32 q /
     32 kv heads of 112, d_ff 14,336, 112 Mamba2 heads, N 64, the groups'
     and the tail's stacked leaves) and of the reduced config, and the
-    encoder-decoder family still gathered.
+    encoder-decoder family's split layout.
 """
 import json
 
@@ -498,9 +498,10 @@ def test_hybrid_layout_at_the_reduced_width_and_the_gathered_family():
     """Reduced zamba2-7b (4 q / 2 kv heads): the shared attention split on
     2 ranks and "kv_slice" on 4 (ranks 2r and 2r + 1 read kv head r),
     named so; on one rank every "model"-tagged leaf is its whole shard;
-    ``_check_tp`` takes the hybrid and refuses the encoder-decoder
-    family, which keeps the gathered step, every "model"-tagged leaf
-    named."""
+    ``_check_tp`` takes the hybrid and the encoder-decoder family, which
+    splits too, no leaf of seamless-m4t-large-v2 named on 16 ranks
+    (``tests/test_torch_tp_encdec.py``), and refuses a family it does
+    not know."""
     from repro_torch.configs import get_config
     from repro_torch.models import ModelZoo
     from repro_torch.models.parallel import (TensorParallel,
@@ -545,10 +546,10 @@ def test_hybrid_layout_at_the_reduced_width_and_the_gathered_family():
     tp = TensorParallel(None, 1, 0, **tp_layout(cfg, 1))
     _check_tp(tp, cfg)
     seamless = get_config("seamless-m4t-large-v2")
-    assert tp_layout(seamless, 16) is None
-    with pytest.raises(ValueError, match="encoder-decoder"):
-        _check_tp(tp, seamless)
-    named = gathered_leaves(seamless, ModelZoo(seamless).param_defs(), 16)
-    assert named and all(
-        g["reason"] == "family 'encdec' keeps the gathered step"
-        for g in named), named
+    assert tp_layout(seamless, 16) == dict(attn="split", mlp=True,
+                                           embed=True, head="vocab")
+    _check_tp(tp, seamless)
+    assert gathered_leaves(seamless, ModelZoo(seamless).param_defs(),
+                           16) == []
+    with pytest.raises(ValueError, match="encoder-decoder families, not"):
+        _check_tp(tp, dataclasses.replace(cfg, family="retrieval"))

@@ -38,7 +38,7 @@ on 4, across the bounds of z, x, B, C and dt):
   * ``tp_layout``, ``leaf_roles`` and ``gathered_leaves`` of every
     mamba2 leaf for 2, 4 and 16 ranks (the published widths on 16: 32
     heads, 2 each, ``in_proj``'s 4,384 columns, the conv's 2,304
-    channels), and seamless-m4t-large-v2 still gathered.
+    channels), and seamless-m4t-large-v2's split layout.
 """
 import json
 
@@ -343,9 +343,8 @@ def test_ssm_layout_on_a_group_of_one_and_uneven_groups():
     """On one rank every mamba2 leaf is its whole "model" shard (the plain
     path); where the group divides neither the heads nor the state size
     the block stays gathered and is named so; seamless-m4t-large-v2 (the
-    encoder-decoder family) keeps the gathered step, every
-    "model"-tagged leaf named (the hybrid family splits:
-    ``tests/test_torch_tp_hybrid.py``)."""
+    encoder-decoder family) splits every "model"-tagged leaf on 16
+    ranks, none named (``tests/test_torch_tp_encdec.py``)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import ModelZoo
@@ -367,8 +366,7 @@ def test_ssm_layout_on_a_group_of_one_and_uneven_groups():
     assert all(g["reason"] == "32 heads and state size 120 on 16 ranks"
                for g in named), named
     seamless = get_config("seamless-m4t-large-v2")
-    assert tp_layout(seamless, 16) is None
-    named = gathered_leaves(seamless, ModelZoo(seamless).param_defs(), 16)
-    assert named and all(
-        g["reason"] == "family 'encdec' keeps the gathered step"
-        for g in named), named
+    assert tp_layout(seamless, 16) == dict(attn="split", mlp=True,
+                                           embed=True, head="vocab")
+    assert gathered_leaves(seamless, ModelZoo(seamless).param_defs(),
+                           16) == []

@@ -256,7 +256,8 @@ def test_layout_names_the_gathered_leaves():
     cfg = get_config("llama3-8b")
     assert [kv_head_range(cfg, 16, r) for r in range(4)] == [
         (0, 1), (0, 1), (1, 2), (1, 2)]
-    # the encoder-decoder family keeps the gathered step (the SSM and
-    # hybrid families split: tests/test_torch_tp_ssm.py,
-    # tests/test_torch_tp_hybrid.py)
-    assert tp_layout(get_config("seamless-m4t-large-v2"), 16) is None
+    # the SSM, hybrid and encoder-decoder families split too
+    # (tests/test_torch_tp_ssm.py, tests/test_torch_tp_hybrid.py,
+    # tests/test_torch_tp_encdec.py)
+    assert tp_layout(get_config("seamless-m4t-large-v2"), 16)["attn"] == \
+        "split"

@@ -190,7 +190,8 @@ def test_vlm_layout_on_sixteen_ranks():
     named = gathered_leaves(cfg, defs, 16)
     assert {g["leaf"] for g in named} == kv, named
     assert all(g["role"] == "slice" and g["reason"] for g in named), named
-    # the encoder-decoder family keeps the gathered step (the hybrid
-    # family splits: tests/test_torch_tp_hybrid.py)
-    assert tp_layout(get_config("seamless-m4t-large-v2"), 16) is None
+    # the hybrid and encoder-decoder families split too
+    # (tests/test_torch_tp_hybrid.py, tests/test_torch_tp_encdec.py)
+    assert tp_layout(get_config("seamless-m4t-large-v2"), 16)["attn"] == \
+        "split"
     assert tp_layout(get_config("zamba2-7b"), 16)["attn"] == "split"
