@@ -148,9 +148,9 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               against the plain version over its first 10 records.  (c)
               Phase 7's guarded torus with three draws whose drift rates
               differ, so that the host resync re-runs draws: splices
-              identical to the fused lane's.  (d) examples/quickstart.py's
-              flow: ``BittideNetwork.sync`` converges; the RTT table and
-              the logical latency 0 → 1.
+              identical to the fused lane's.  (The quickstart's flow,
+              once its part (d), runs as phase 16's
+              ``examples/torch_quickstart.py``.)
 
 11. serve   — the bittide-paced serving simulator on the card.  (a)
               examples/serve_bittide.py at its full default: ring(8)
@@ -211,11 +211,9 @@ by piece: the stack scatter, its copy to the card, the record copies back.
 13. train   — the training path (``repro_torch.launch`` / ``optim`` /
               ``data`` / ``checkpoint``; no kernel of the port: the
               reference's training path reaches no ``pallas_call``).  (a)
-              examples/train_bittide_cluster.py at its full width: the
-              bittide sync of mesh2d(4, 4) (discrete controller, 24,000
-              steps; converged), ``ring_allreduce_schedule`` on its ring
-              order held by ``verify_bounded(depth_frames=4096)``,
-              ``simulate_stragglers`` as the example calls it; then
+              examples/train_bittide_cluster.py's step at its full width
+              (its sync, ring schedule and stragglers run in phase 16,
+              ``examples/torch_train_bittide_cluster.py``):
               smollm-135m at full width and depth (30 layers, d 576,
               vocab 49,152, tied head, f32 parameters) on seeded random
               weights, AdamW(lr 3e-3, weight decay 0.01), the example's
@@ -367,8 +365,41 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               the 16 "model" ranks), beside its gathered decode
               (``GATHERED_STEP``).
 
-Then the kernels line, the card's ``nvidia-smi`` line, and as the last
-line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
+16. examples — every ``examples/torch_*.py`` through its ``main(argv)``
+              on the card (``EXAMPLE_CARD_FORMS``): the quickstart; the
+              cable swap's 40,000 periods once per ``--engine`` (auto →
+              fused, fused, tiled, per-step, segment-sum); auto_reframe
+              (2,880 periods, fused); ensemble_sweep at 32 draws (its
+              dense lane: fused); scale_torus (k = 6, 10, 14, 22 on
+              segment-sum, then torus3d(100) on the sparse kernel with
+              watermarks); the chaos campaign on torus3d(8) × 4,800
+              periods at 64 draws of its 1,024 (phase 9 runs two
+              1,024-draw campaigns); serve_bittide's full default;
+              serve_decode's default (reduced smollm-135m, 4 × 64, 32
+              tokens); the training example (smollm-135m at full width,
+              8 × 256) for 20 steps, then ``--resume`` to step 24 from its
+              checkpoint under ``build/examples`` (removed after).  Each
+              run with every wrapper's count set to 0 just before and read
+              just after: one line per example with its launches, wall and
+              printed lines; the fused, tiled, sparse and per-step kernels
+              each launched from their examples; one engine call per kernel
+              and form (a guarded one where the guard ran) held at 0.0 to
+              its plain version.  Beside them, in a process of its own
+              started with the phase (``examples_small_forms``), each
+              example's smallest form (``EXAMPLE_SMALL_FORMS``:
+              ``--smoke`` where the reference has one, ``sync_torus(6)``,
+              4 draws, ``--tiny --steps 3``) on the card and then on the
+              CPU, held to each other:
+              integers, verdicts and strings equal, ν at
+              ``FREQ_ATOL_PPM``, β and queue peaks at
+              ``BETA_ATOL_CROSS_FRAMES``, convergence times equal but at
+              named records within the bar of the band, losses at rel
+              2e-3, greedy tokens where the CPU's top-two margin exceeds
+              4e-2.
+
+Then the kernels line (each kernel's ``examples_launches`` beside the
+earlier phases' ``launches``), the card's ``nvidia-smi`` line, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failure raises and ends the
 run with a non-zero exit.  It exits 3 with no result when the port
 (``src/repro_torch``) is not beside it, as when the script is copied
 alone into an empty directory, and 2 without a CUDA card.
@@ -388,6 +419,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # checks that they agree).
 FREQ_ATOL_PPM = 1e-6
 BETA_ATOL_FRAMES = 1e-6
+BETA_ATOL_CROSS_FRAMES = 2e-5
 # tests/test_chaos.py's bar for a LinkDrop campaign on the sparse lane
 # against segment-sum (re-establishment at kp = 2e-8 sets a float32
 # floor); tests/test_torch_package_rules.py checks it too.
@@ -2248,9 +2280,8 @@ def run_perstep(dev, tiled_res, scen, k=22, steps=2_000, rec=100,
     import numpy as np
     import torch
     from repro_torch.core import (BittideNetwork, ControllerConfig,
-                                  OscillatorSpec, ReframePolicy, SimConfig,
-                                  fully_connected, make_links, torus3d)
-    from repro_torch.core.latency import rtt_table
+                                  ReframePolicy, SimConfig, fully_connected,
+                                  make_links, torus3d)
     from repro_torch.kernels import (EngineOptions, ops,
                                      simulate_ensemble_dense)
     from repro_torch.kernels.bittide_step import (bittide_perstep,
@@ -2441,23 +2472,6 @@ def run_perstep(dev, tiled_res, scen, k=22, steps=2_000, rec=100,
     assert resync >= 1, out["c"]
     assert out["c"]["freq_err_vs_fused_ppm"] <= FREQ_ATOL_PPM, out["c"]
 
-    # (d) The quickstart: examples/quickstart.py's flow on the card.
-    net = BittideNetwork.build(fully_connected(8), cable_m=2.0,
-                               osc=OscillatorSpec(initial_ppm=8.0, seed=0))
-    (sync, sync_s) = timed(lambda: net.sync(
-        ctrl=ControllerConfig(kind="discrete", kp=2e-8, fs=1e-7,
-                              pulses_per_update=50),
-        cfg=SimConfig(dt=5e-5, steps=10_000, record_every=20,
-                      quantize_beta=True)))
-    out["d"] = dict(phase="quickstart", converged=sync.converged,
-                    convergence_time_s=sync.convergence_time_s,
-                    freq_spread_ppm=sync.freq_spread_ppm, wall_s=sync_s,
-                    rtt_table={str(i): v for i, v in
-                               rtt_table(sync.lsn.topo, net.links).items()},
-                    latency_0_1=sync.lsn.latency(0, 1))
-    emit(out["d"])
-    assert sync.converged and sync.freq_spread_ppm < 1.0, out["d"]
-    assert 33 <= out["d"]["latency_0_1"] <= 37, out["d"]
     out["launches"] = launches_a + launches_b + launches_c
     out["held"] = [dict(freq_ppm=err["freq_err_ppm"],
                         beta_frames=err.get("beta_err_frames", 0.0)),
@@ -3068,8 +3082,6 @@ ADAMW_F32_ULPS = 2
 # H100 SXM dense bf16 tensor-core peak, without sparsity (NVIDIA data
 # sheet): the yardstick of phase 13's 6·N·D share.
 PEAK_BF16_FLOPS = 989e12
-# examples/train_bittide_cluster.py: the ring order of its AOT all-reduce
-TRAIN_RING_ORDER = [0, 1, 2, 3, 7, 6, 5, 4, 8, 9, 10, 11, 15, 14, 13, 12]
 
 
 def train_batch(cfg, b, s, seed, dev):
@@ -3333,46 +3345,11 @@ def train_card_vs_cpu(name, dev, b=2, s=64) -> dict:
 def run_train(dev, smi):
     """Phase 13: the training path on the card (see the module
     docstring)."""
-    import numpy as np
     from repro_torch.configs import ARCH_NAMES
-    from repro_torch.core import (BittideNetwork, ControllerConfig,
-                                  OscillatorSpec, SimConfig, mesh2d,
-                                  ring_allreduce_schedule, verify_bounded)
-    from repro_torch.ft import simulate_stragglers
     t_phase = time.perf_counter()
-    # (a) examples/train_bittide_cluster.py's flow: sync, the AOT ring,
-    # straggler pacing, then smollm-135m
-    topo = mesh2d(4, 4)
-    net = BittideNetwork.build(topo, cable_m=2.0,
-                               osc=OscillatorSpec(initial_ppm=8.0, seed=0),
-                               device=dev)
-    sync, sync_s = timed(lambda: net.sync(
-        ctrl=ControllerConfig(kind="discrete", kp=4e-8, fs=1e-7,
-                              pulses_per_update=50),
-        cfg=SimConfig(dt=5e-5, steps=24_000, record_every=40,
-                      quantize_beta=True)))
-    sched = ring_allreduce_schedule(sync.lsn, TRAIN_RING_ORDER,
-                                    chunk_frames=256, combine_ticks=32)
-    bounded = verify_bounded(sched, sync.lsn, depth_frames=4096)
-    rep, strag_s = timed(lambda: simulate_stragglers(
-        topo, np.random.default_rng(1).uniform(-20_000, 20_000,
-                                               topo.num_nodes),
-        duration_s=1000.0, device=dev))
-    cluster = dict(phase="train", part="cluster", nvidia_smi=smi,
-                   topology=topo.name, converged=sync.converged,
-                   convergence_time_s=sync.convergence_time_s,
-                   freq_spread_ppm=sync.freq_spread_ppm, sync_wall_s=sync_s,
-                   ring_transfers=len(sched.events),
-                   ring_makespan_ticks=sched.makespan_ticks,
-                   ring_bounded=bool(bounded),
-                   straggler_queue_peak=rep.controlled_queue_peak,
-                   straggler_uncontrolled_peak=rep.uncontrolled_queue_peak,
-                   straggler_throughput_ratio=rep.throughput_ratio,
-                   straggler_wall_s=strag_s)
-    emit(cluster)
-    assert sync.converged, cluster
-    assert bounded, cluster
-    out = dict(cluster=cluster)
+    # (a) smollm-135m at full width and depth: the training example's step
+    # (its sync, ring schedule and stragglers run in phase 16)
+    out = {}
     out["smollm"] = train_full_width(
         "smollm-135m", dev, smi, b=8, s=256, steps=60, time_from=10,
         ckpt_dir=ROOT / "build" / "phase13_ckpt", ckpt_step=50)
@@ -4239,6 +4216,407 @@ def run_launch(dev, smi, serve_row, train_row):
     return dict(step=step, dryrun=row)
 
 
+# Phase 16: the port's examples (examples/torch_*.py) on the card.  Each
+# card form: (example, argv, the kernels it must launch on the card).  The
+# chaos campaign runs 64 draws of its 1,024 (phase 9 runs two 1,024-draw
+# campaigns); the training example 20 steps of its 300, then a resume to
+# step 24 from its own checkpoint.
+EXAMPLES_DIR = ROOT / "build" / "examples"
+EXAMPLE_CARD_FORMS = (
+    ("quickstart", [], ()),
+    ("cable_swap", ["--no-plot", "--engine", "auto"], ("fused",)),
+    ("cable_swap", ["--no-plot", "--engine", "fused"], ("fused",)),
+    ("cable_swap", ["--no-plot", "--engine", "tiled"], ("tiled",)),
+    ("cable_swap", ["--no-plot", "--engine", "per-step"], ("per-step",)),
+    ("cable_swap", ["--no-plot", "--engine", "segment-sum"], ()),
+    ("auto_reframe", ["--no-plot"], ("fused",)),
+    ("ensemble_sweep", ["--draws", "32"], ("fused",)),
+    ("scale_torus", [], ("sparse",)),
+    ("chaos_campaign", ["--no-plot", "--draws", "64"], ()),
+    ("serve_bittide", ["--no-plot"], ()),
+    ("serve_decode", [], ()),
+    ("train_bittide_cluster",
+     ["--steps", "20", "--ckpt-dir", str(EXAMPLES_DIR / "card_ckpt")], ()),
+    ("train_bittide_cluster",
+     ["--steps", "24", "--resume", "--ckpt-dir",
+      str(EXAMPLES_DIR / "card_ckpt")], ()),
+)
+# Each example's smallest form, run on the card and then on the CPU in one
+# process (``examples_small_forms``); scale_torus's is its
+# ``sync_torus(6)`` (None).
+EXAMPLE_SMALL_FORMS = (
+    ("quickstart", []),
+    ("cable_swap", ["--smoke", "--no-plot"]),
+    ("auto_reframe", ["--smoke", "--no-plot"]),
+    ("ensemble_sweep", ["--draws", "4"]),
+    ("scale_torus", None),
+    ("chaos_campaign", ["--smoke", "--no-plot"]),
+    ("serve_bittide", ["--smoke", "--no-plot"]),
+    ("serve_decode", ["--smoke"]),
+    ("train_bittide_cluster", ["--tiny", "--steps", "3"]),
+)
+COUNTED_LANES = ("fused", "tiled", "sparse", "per-step", "segment-sum")
+
+
+def load_example(name):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, argv, dev):
+    """``main(argv + ["--device", dev])`` of ``examples/torch_<name>.py``
+    with its standard output captured: (its value, its printed lines, its
+    host wall, synchronized with the card)."""
+    import io
+    import torch
+    mod = load_example(name)
+    buf = io.StringIO()
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            value = mod.main([*argv, "--device", str(dev)])
+        if cuda:
+            torch.cuda.synchronize()
+    except BaseException:
+        sys.stderr.write(buf.getvalue())
+        raise
+    return value, buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def reset_launch_counts():
+    """Every wrapper's launch count, and the segment-sum runs, to 0."""
+    from repro_torch.core.frame_model import RUN_COUNT
+    from repro_torch.kernels.bittide_sparse import bittide_sparse
+    from repro_torch.kernels.bittide_step import (bittide_fused,
+                                                  bittide_perstep,
+                                                  bittide_tiled)
+    for kernel in (bittide_fused, bittide_tiled, bittide_sparse,
+                   bittide_perstep):
+        kernel.launches = 0
+    RUN_COUNT["segment-sum"] = 0
+
+
+def example_digest(name, v):
+    """What the card run and the CPU run of an example's smallest form
+    must agree on: ``exact`` (integers, verdicts, strings), ``nu`` (ν
+    records, ppm), ``beta`` (β records and queue peaks), ``conv``
+    (convergence times with the ν records and times they come from),
+    ``loss`` (training losses) and ``tokens`` (greedy tokens)."""
+    import numpy as np
+    d = dict(exact={}, nu={}, beta={}, conv={}, loss={}, tokens=None)
+    if name == "quickstart":
+        d["exact"] = dict(rtt=v["rtt_table"], lam=v["lam"].tolist(),
+                          latency_0_1=v["latency_0_1"],
+                          converged=v["converged"])
+        d["nu"]["sync"] = v["freq_ppm"]
+        d["conv"]["sync"] = (v["convergence_time_s"], v["freq_ppm"],
+                             v["times"])
+    elif name in ("cable_swap", "auto_reframe"):
+        keys = (("engine", "num_launches", "chunk_records", "rtt_before",
+                 "rtt_after", "rtt_shift", "other_shift")
+                if name == "cable_swap" else
+                ("engine", "num_launches", "reframes", "max_shift",
+                 "rtt_residual", "rtt_shift"))
+        d["exact"] = {k: v[k] for k in keys}
+        d["nu"]["run"], d["beta"]["run"] = v["freq_ppm"], v["beta"]
+        if name == "auto_reframe":
+            d["exact"]["total_shift"] = v["total_shift"].tolist()
+            d["nu"]["plain"] = v["plain_freq_ppm"]
+            d["beta"]["plain"] = v["plain_beta"]
+    elif name == "ensemble_sweep":
+        runs = {**{f"distribution {k}": r
+                   for k, r in v["distribution"].items()},
+                **{f"dt {k}": r for k, r in v["dt_sweep"].items()},
+                "kp sweep": v["kp_sweep"]}
+        for k, r in runs.items():
+            d["nu"][k] = r["freq_ppm"]
+            d["conv"][k] = (r["conv"], r["freq_ppm"], r["times"])
+        d["exact"]["dense_engine"] = v["dense"]["engine"]
+        d["nu"]["dense"] = v["dense"]["freq_ppm"]
+    elif name == "scale_torus":
+        d["nu"]["sync_torus(6)"] = v["freq_ppm"]
+        d["conv"]["sync_torus(6)"] = (v["conv_s"], v["freq_ppm"], v["times"])
+    elif name == "chaos_campaign":
+        d["exact"] = {k: v[k] for k in (
+            "engine", "num_launches", "counts", "shrunk_draw",
+            "shrunk_expected", "shrunk_verdict")}
+        d["exact"]["verdicts"] = [str(x) for x in v["verdicts"]]
+        d["nu"]["campaign"], d["beta"]["campaign"] = v["freq_ppm"], v["beta"]
+    elif name == "serve_bittide":
+        d["exact"] = {k: v[k] for k in ("segments", "num_launches",
+                                         "requests", "tokens", "claim")}
+        for disc, r in v["results"].items():
+            d["exact"][disc] = dict(
+                completed=r.completed, num_ticks=r.num_ticks,
+                queue_peak=r.queue_peak,
+                generated=r.generated_tokens.tolist())
+        d["nu"]["pace"], d["beta"]["pace"] = v["freq_ppm"], v["beta"]
+        d["summaries"] = [r.summary() for r in v["results"].values()]
+    elif name == "serve_decode":
+        d["tokens"] = v
+    elif name == "train_bittide_cluster":
+        d["exact"] = {k: v[k] for k in (
+            "converged", "ring_transfers", "ring_makespan_ticks", "params",
+            "start", "steps")}
+        d["nu"]["sync"] = v["sync_freq_ppm"]
+        d["conv"]["sync"] = (v["convergence_time_s"], v["sync_freq_ppm"],
+                             v["sync_times"])
+        d["beta"]["straggler_queue_peak"] = np.float64(
+            v["straggler_queue_peak"])
+        d["beta"]["straggler_uncontrolled_peak"] = np.float64(
+            v["straggler_uncontrolled_peak"])
+        d["loss"] = v["losses"]
+    return d
+
+
+def small_form(name, argv, dev):
+    """One example's smallest form on ``dev``: its digest, wall and
+    printed lines (scale_torus: ``sync_torus(6)``)."""
+    if argv is None:
+        t0 = time.perf_counter()
+        _, res, _ = load_example(name).sync_torus(6, device=str(dev))
+        value = dict(freq_ppm=res.freq_ppm, times=res.times,
+                     conv_s=res.convergence_time(1.0))
+        lines, wall = [], time.perf_counter() - t0
+    else:
+        if name == "train_bittide_cluster":
+            argv = [*argv, "--ckpt-dir",
+                    str(EXAMPLES_DIR / f"{dev}_tiny_ckpt")]
+        value, lines, wall = run_example(name, argv, dev)
+    return dict(digest=example_digest(name, value), wall_s=wall,
+                lines=lines)
+
+
+def examples_small_forms(out_path, card):
+    """Every example's smallest form on ``card`` and then on the CPU in
+    this process, pickled to ``out_path`` as {example: (card run, CPU
+    run)}: phase 16 runs this in a process of its own beside its card
+    forms."""
+    import pickle
+    import torch
+    torch.set_num_threads(4)
+    out = {name: (small_form(name, argv, card), small_form(name, argv, "cpu"))
+           for name, argv in EXAMPLE_SMALL_FORMS}
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def parted_convergence(card, cpu, band=1.0):
+    """Records where the card's and the CPU's ν spreads lie on either
+    side of the ``band`` (ppm) whence a convergence time is read: each
+    must lie within ``FREQ_ATOL_PPM`` of the band on both sides, or the
+    runs part (AssertionError).  Returns those records as (draw, record)
+    pairs (an empty list: the times agree)."""
+    import numpy as np
+    (t_a, f_a, times), (t_b, f_b, _) = card, cpu
+    f_a, f_b = np.asarray(f_a), np.asarray(f_b)
+    if f_a.ndim == 2:
+        f_a, f_b = f_a[None], f_b[None]
+    s_a = f_a.max(axis=-1) - f_a.min(axis=-1)
+    s_b = f_b.max(axis=-1) - f_b.min(axis=-1)
+    sides = (s_a <= band) != (s_b <= band)
+    named = [(int(b), int(r)) for b, r in zip(*np.nonzero(sides))]
+    for b, r in named:
+        assert abs(s_a[b, r] - band) <= 2 * FREQ_ATOL_PPM and \
+            abs(s_b[b, r] - band) <= 2 * FREQ_ATOL_PPM, \
+            f"convergence parts at draw {b}, record {r} (t={times[r]})"
+    if not named:
+        assert np.array_equal(np.asarray(t_a), np.asarray(t_b)), (t_a, t_b)
+    return named
+
+
+def decode_margins(tokens, batch=2, prompt=8):
+    """The CPU's top-1 / top-2 logit margins along its own greedy tokens
+    for ``examples/torch_serve_decode.py --smoke`` (its weights, prompt
+    and reduced smollm-135m): prefill, then each token fed back."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import ModelZoo, widen_caches
+    mod = load_example("serve_decode")
+    cfg = get_config("smollm-135m").reduced()
+    zoo = ModelZoo(cfg)
+    params = mod.init_params(zoo, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt)), dtype=torch.int32)
+    out = []
+    with torch.inference_mode():
+        logits, caches = zoo.prefill(params, {"tokens": toks})
+        for i in range(tokens.shape[1]):
+            top2 = logits[:, -1].float().topk(2, dim=-1).values
+            out.append((top2[:, 0] - top2[:, 1]).numpy())
+            if i + 1 < tokens.shape[1]:
+                logits, caches = zoo.decode(
+                    params, widen_caches(caches),
+                    {"tokens": torch.as_tensor(tokens[:, i:i + 1])})
+    return np.stack(out, axis=1)
+
+
+def compare_small_forms(name, card, cpu) -> dict:
+    """Phase 16's card-against-CPU row for one example's smallest form:
+    integers and verdicts equal, ν at ``FREQ_ATOL_PPM``, β and queue
+    peaks at ``BETA_ATOL_CROSS_FRAMES``, convergence times equal but at
+    records named by ``parted_convergence``, losses at
+    ``TRAIN_LOSS_REL``, tokens under ``GREEDY_MARGIN``.  Asserts after
+    the caller emits it (``row["ok"]``)."""
+    import numpy as np
+    a, b = card["digest"], cpu["digest"]
+    row = dict(phase="examples", part="card_vs_cpu", example=name,
+               card_wall_s=card["wall_s"], cpu_wall_s=cpu["wall_s"],
+               exact_equal=a["exact"] == b["exact"], nu_err_ppm={},
+               beta_err={}, conv_parted={}, loss_rel={})
+    for k in a["nu"]:
+        row["nu_err_ppm"][k] = float(np.abs(np.asarray(a["nu"][k])
+                                            - np.asarray(b["nu"][k])).max())
+    for k in a["beta"]:
+        x, y = np.asarray(a["beta"][k]), np.asarray(b["beta"][k])
+        row["beta_err"][k] = (float(np.abs(x - y).max()) if x.size else 0.0)
+    for k in a["conv"]:
+        row["conv_parted"][k] = parted_convergence(a["conv"][k],
+                                                   b["conv"][k])
+    for step, loss in b["loss"].items():
+        row["loss_rel"][str(step)] = abs(a["loss"][step] - loss) / abs(loss)
+    row["nu_bit_equal"] = all(np.array_equal(a["nu"][k], b["nu"][k])
+                              for k in a["nu"])
+    if "summaries" in a:
+        row["summaries_equal"] = a["summaries"] == b["summaries"]
+    if a["tokens"] is not None:
+        margins = decode_margins(b["tokens"])
+        sure = margins > GREEDY_MARGIN
+        compared = []
+        for i in range(b["tokens"].shape[0]):
+            n = int(np.argmin(sure[i])) if not sure[i].all() \
+                else sure.shape[1]
+            compared.append(n)
+            row.setdefault("tokens_equal", True)
+            row["tokens_equal"] &= bool(np.array_equal(
+                a["tokens"][i, :n], b["tokens"][i, :n]))
+        row["tokens_compared"] = compared
+        row["tokens_identical"] = bool(np.array_equal(a["tokens"],
+                                                      b["tokens"]))
+    row["ok"] = bool(
+        row["exact_equal"]
+        and all(e <= FREQ_ATOL_PPM for e in row["nu_err_ppm"].values())
+        and all(e <= BETA_ATOL_CROSS_FRAMES
+                for e in row["beta_err"].values())
+        and all(e <= TRAIN_LOSS_REL for e in row["loss_rel"].values())
+        and row.get("tokens_equal", True)
+        and (row.get("summaries_equal", True) or not row["nu_bit_equal"]))
+    return row
+
+
+def run_examples(dev, smi):
+    """Phase 16: every port example on the card (see the module
+    docstring).  Returns per kernel the launches from the examples and the
+    worst errors of the engine calls held against the plain versions."""
+    import pickle
+    import shutil
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.scenarios import runner
+    from repro_torch.telemetry import launch_counts
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    EXAMPLES_DIR.mkdir(parents=True)
+    small_out = EXAMPLES_DIR / "small_forms.pkl"
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.examples_small_forms("
+            f"{str(small_out)!r}, {str(dev)!r})")
+    small_proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                                  stdout=subprocess.DEVNULL)
+    try:
+        launches = {k: 0 for k in COUNTED_LANES}
+        held = {}
+        for name, argv, kernels in EXAMPLE_CARD_FORMS:
+            with contextlib.ExitStack() as stack:
+                calls = {k: stack.enter_context(recorded_engine_calls(m, e))
+                         for k, (m, e) in {
+                             "scenario dense": (runner, "_fused_engine"),
+                             "scenario per-step": (runner, "_perstep_engine"),
+                             "dense": (ops, "_fused_engine"),
+                             "sparse": (ops, "_sparse_engine")}.items()}
+                reset_launch_counts()
+                value, lines, wall = run_example(name, argv, dev)
+                counts = launch_counts()
+            row = dict(phase="examples", part="card", example=name,
+                       argv=argv, nvidia_smi=smi, wall_s=wall,
+                       launches=counts, printed=lines)
+            if name == "chaos_campaign":
+                row["cut"] = ("64 draws of the example's 1,024 on "
+                              "torus3d(8) x 4,800 periods: phase 9 runs "
+                              "two 1,024-draw campaigns")
+            if name == "train_bittide_cluster":
+                row["losses"] = value["losses"]
+            for k in COUNTED_LANES:
+                launches[k] += counts[k]
+            # one engine call per kernel and card form, held at 0.0 (a
+            # guarded one where the form ran the guard)
+            for a, out in [c for k in ("scenario dense", "dense")
+                           for c in sorted(calls[k], key=lambda c:
+                                           not c[0]["record_guard"])[:1]]:
+                for kern, w in hold_engine_calls([(a, out)], 50,
+                                                 exact=True).items():
+                    row.setdefault("held", {})[kern] = w
+            if calls["scenario per-step"]:
+                row.setdefault("held", {})["bittide_step"] = \
+                    hold_perstep_calls(calls["scenario per-step"][:1], 50)
+            if calls["sparse"]:
+                row.setdefault("held", {})["bittide_sparse"] = \
+                    hold_sparse_calls(calls["sparse"][:1])
+            del calls
+            emit(row)
+            for kern in kernels:
+                assert counts[kern] > 0, (name, argv, kern, counts)
+            for kern, w in row.get("held", {}).items():
+                assert w["freq_ppm"] == 0.0 and w["beta_frames"] == 0.0, \
+                    (name, kern, w)
+                h = held.setdefault(kern, dict(calls=0, freq_ppm=0.0,
+                                               beta_frames=0.0))
+                h["calls"] += w["calls"]
+                h["freq_ppm"] = max(h["freq_ppm"], w["freq_ppm"])
+                h["beta_frames"] = max(h["beta_frames"], w["beta_frames"])
+            if name == "train_bittide_cluster" and "--resume" in argv:
+                assert value["start"] == 20 and sorted(value["losses"]) \
+                    == [20, 21, 22, 23], value["losses"]
+        for kern in ("fused", "tiled", "sparse", "per-step"):
+            assert launches[kern] > 0, (kern, launches)
+        t_card = time.perf_counter() - t_phase
+
+        # the smallest forms, card and CPU, from their own process
+        t0 = time.perf_counter()
+        rc = small_proc.wait(timeout=600)
+        small_wait = time.perf_counter() - t0
+        assert rc == 0, f"the smallest forms' process exited {rc}"
+        with open(small_out, "rb") as f:
+            small = pickle.load(f)
+    finally:
+        if small_proc.poll() is None:
+            small_proc.kill()
+            small_proc.wait()
+    rows = [compare_small_forms(name, *small[name])
+            for name, _ in EXAMPLE_SMALL_FORMS]
+    for r in rows:
+        emit(r)
+    shutil.rmtree(EXAMPLES_DIR, ignore_errors=True)
+    total = dict(phase="examples", part="total", nvidia_smi=smi,
+                 launches=launches, card_forms_s=t_card,
+                 small_forms_wait_s=small_wait,
+                 seconds=time.perf_counter() - t_phase)
+    emit(total)
+    for r in rows:
+        assert r["ok"], r
+    torch.cuda.empty_cache()
+    return dict(launches=launches, held=held, total=total)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print(f"chip_smoke: no port beside the script ({ROOT / 'src'} "
@@ -4367,6 +4745,10 @@ def main() -> int:
     # fake 512-rank world; no kernel
     run_launch(dev, smi, models["smollm"], train["smollm"])
 
+    # 16. the port's examples on the card, each through its main(argv);
+    # their smallest forms on the card against the CPU
+    examples = run_examples(dev, smi)
+
     # The kernels line, the card line, the last line.  Launches: the main
     # paths' counts (phases 3, 4, 6, 7, 8, 9, 10 and 11; the fused, tiled and
     # sparse wrappers count their calls that launched — one bittide_tiled
@@ -4394,6 +4776,8 @@ def main() -> int:
         fold("bittide_step", h["freq_ppm"], h["beta_frames"])
     for h in serving["held"]:
         fold("bittide_fused", h["freq_ppm"], h["beta_frames"])
+    for kernel, h in examples["held"].items():
+        fold(kernel, h["freq_ppm"], h["beta_frames"])
     ps = perstep["a"]
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
     no_library = ("no single PyTorch call runs the period loop (a matmul "
@@ -4404,6 +4788,7 @@ def main() -> int:
              replaces="src/repro/kernels/bittide_step.py:271 (_fused_kernel)",
              launches=fc8["launches"] + torus["launches"]
              + scen["fused_launches"] + serving["fused_launches"],
+             examples_launches=examples["launches"]["fused"],
              max_abs_err=errs["bittide_fused"]["freq_ppm"],
              max_err_ppm=errs["bittide_fused"]["freq_ppm"],
              max_beta_err_frames=errs["bittide_fused"]["beta_frames"],
@@ -4435,6 +4820,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/bittide_tiled.cu",
              replaces="src/repro/kernels/bittide_step.py:744 (_tiled_kernel)",
              launches=tiled["launches"] + scen["tiled_launches"],
+             examples_launches=examples["launches"]["tiled"],
              max_abs_err=errs["bittide_tiled"]["freq_ppm"],
              max_err_ppm=errs["bittide_tiled"]["freq_ppm"],
              max_beta_err_frames=errs["bittide_tiled"]["beta_frames"],
@@ -4461,6 +4847,7 @@ def main() -> int:
              replaces="src/repro/kernels/bittide_sparse.py:161 "
                       "(_sparse_kernel)",
              launches=sparse["launches"] + chaos["launches"],
+             examples_launches=examples["launches"]["sparse"],
              max_abs_err=errs["bittide_sparse"]["freq_ppm"],
              max_err_ppm=errs["bittide_sparse"]["freq_ppm"],
              max_beta_err_frames=errs["bittide_sparse"]["beta_frames"],
@@ -4476,6 +4863,7 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/bittide_step.cu",
              replaces="src/repro/kernels/bittide_step.py:137 (_kernel)",
              launches=perstep["launches"],
+             examples_launches=examples["launches"]["per-step"],
              max_abs_err=errs["bittide_step"]["freq_ppm"],
              max_err_ppm=errs["bittide_step"]["freq_ppm"],
              max_beta_err_frames=errs["bittide_step"]["beta_frames"],

@@ -10,7 +10,7 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["device_name", "resolve_device"]
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -27,3 +27,9 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
         raise RuntimeError(f"device={device!r} requested but CUDA is not "
                            "available")
     return dev
+
+
+def device_name(device: Union[str, torch.device]) -> str:
+    """The card's name (``torch.cuda.get_device_name``) or ``"cpu"``."""
+    dev = torch.device(device)
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

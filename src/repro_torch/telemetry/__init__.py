@@ -13,6 +13,7 @@ from repro_torch.telemetry.api import Telemetry, resolve_telemetry
 from repro_torch.telemetry.compile_stats import (compile_stats,
                                                  engine_cache_sizes,
                                                  launch_counts,
+                                                 launches_since,
                                                  no_new_compiles)
 from repro_torch.telemetry.trace import (NULL_TRACE, RunTrace, TraceEvent,
                                          coerce_trace)
@@ -20,4 +21,5 @@ from repro_torch.telemetry.watermarks import Watermarks
 
 __all__ = ["Telemetry", "resolve_telemetry", "Watermarks", "RunTrace",
            "TraceEvent", "NULL_TRACE", "coerce_trace", "compile_stats",
-           "engine_cache_sizes", "launch_counts", "no_new_compiles"]
+           "engine_cache_sizes", "launch_counts", "launches_since",
+           "no_new_compiles"]

@@ -25,7 +25,7 @@ importable before the kernel stack.
 from __future__ import annotations
 
 __all__ = ["compile_stats", "engine_cache_sizes", "launch_counts",
-           "no_new_compiles"]
+           "launches_since", "no_new_compiles"]
 
 
 def compile_stats() -> dict:
@@ -56,6 +56,13 @@ def launch_counts() -> dict:
             "sparse": bittide_sparse.launches,
             "per-step": bittide_perstep.launches,
             "segment-sum": RUN_COUNT["segment-sum"]}
+
+
+def launches_since(before: dict) -> dict:
+    """The :func:`launch_counts` that grew since ``before`` (an earlier
+    :func:`launch_counts`), by how much."""
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 class no_new_compiles:

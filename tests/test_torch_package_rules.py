@@ -2,8 +2,12 @@
 
 ``repro_torch`` imports torch and numpy only — never jax and nothing of
 ``repro`` — and every entry point runs on the CUDA card unless the caller
-passes ``device="cpu"``.
+passes ``device="cpu"``.  The port's examples (``examples/torch_*.py``)
+import the standard library, numpy, torch and ``repro_torch`` (and
+matplotlib behind their plots' ``ImportError`` guard), never a reference
+example, and raise without a card unless given ``--device cpu``.
 """
+import ast
 import os
 import re
 import subprocess
@@ -21,8 +25,13 @@ import repro_torch.scenarios as ts  # noqa: E402
 from repro_torch import ft, serve  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+PORT_EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 PORT_SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("torch_*.py")) \
+    + PORT_EXAMPLES
+REFERENCE_EXAMPLES = sorted(p.stem for p in (ROOT / "examples").glob("*.py")
+                            if not p.stem.startswith("torch_"))
+EXAMPLE_IMPORTS = {"numpy", "torch", "repro_torch", "matplotlib"}
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
     r"|from\s+repro\b(?!_torch))", re.M)
@@ -88,12 +97,48 @@ def test_no_jax_or_reference_import_in_source(path):
     assert not hits, f"{path} imports {hits}"
 
 
+@pytest.mark.parametrize("path", PORT_EXAMPLES, ids=lambda p: p.stem)
+def test_example_imports_only_the_port(path):
+    """An example's imports: the standard library, numpy, torch,
+    ``repro_torch`` (matplotlib only inside its plot's guard); no
+    reference example, and nothing of ``repro`` or jax."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path.name}: relative import"
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in REFERENCE_EXAMPLES, f"{path.name}: {name}"
+            assert top in sys.stdlib_module_names or top in EXAMPLE_IMPORTS, \
+                f"{path.name} imports {name}"
+    assert len(REFERENCE_EXAMPLES) == len(PORT_EXAMPLES) == 9
+    assert sorted(f"torch_{n}" for n in REFERENCE_EXAMPLES) == \
+        [p.stem for p in PORT_EXAMPLES]
+
+
+@pytest.mark.parametrize("path", PORT_EXAMPLES, ids=lambda p: p.stem)
+def test_examples_without_device_raise_when_no_card(monkeypatch, path):
+    """Run with no ``--device`` and no card, an example raises before it
+    does any work: it never falls back to the CPU."""
+    from torch_examples import load
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = load(path.stem)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main([])
+
+
 def test_card_side_bars_equal_the_harness_bars():
     """chip_smoke.py (and the card tests, which take its bars) run where
     jax is absent, so it restates the harness's bars; they must agree."""
     import engine_harness
     text = (ROOT / "chip_smoke.py").read_text()
-    for name in ("FREQ_ATOL_PPM", "BETA_ATOL_FRAMES"):
+    for name in ("FREQ_ATOL_PPM", "BETA_ATOL_FRAMES",
+                 "BETA_ATOL_CROSS_FRAMES"):
         value = re.search(rf"^{name} = (\S+)$", text, re.M).group(1)
         assert float(value) == getattr(engine_harness, name), name
 

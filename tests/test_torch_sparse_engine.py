@@ -301,10 +301,11 @@ def _reference_property_draws(name, examples=3):
 # (n, max_deg, gseed, lseed), each with both latency kinds.  The third
 # failed with heterogeneous latencies at 2.2888e-5 frames, and hypothesis
 # replayed it from its example database on every later run; the fourth
-# failed with few-class latencies at 2.098e-5 frames, replayed so too.
+# failed with few-class latencies at 2.098e-5 frames, replayed so too, as
+# was the sixth (few-class latencies, 2.0981e-5 frames).
 REFERENCE_FAILING_EXAMPLES = ((36, 4, 31405, 55738), (34, 5, 1, 0),
                               (17, 4, 36449, 13), (22, 5, 0, 188),
-                              (12, 5, 0, 1))
+                              (12, 5, 0, 1), (22, 5, 8645, 35885))
 
 
 @pytest.mark.parametrize(
