@@ -300,6 +300,15 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               and the head, bf16, f32 moments), 2 × 1,024 tokens over
               2 × 1,024 source frames, ``kv`` on its sequence and
               ``cross_kv`` on the source's (``encdec_split_bits``).
+              llama3-8b at its full width (d 4,096, d_ff 14,336,
+              vocabulary 128,256) × 2 layers and qwen2-moe-a2.7b as
+              above, both with FSDP forced (``fsdp_split_bits``: every
+              stacked leaf stored sharded over "data", a group of one
+              here, held as the rank's shard and gathered layer by
+              layer, ``models.fsdp``), 2 × 1,024 tokens: the split train
+              step, prefill and 2 decode steps against the plain calls,
+              bit for bit, and the layer slices gathered in every call
+              (``GATHER_COUNT``).
               Then a save
               from the mesh,
               ``plan_mesh(1, 1)``, a restore
@@ -363,7 +372,10 @@ by piece: the stack scatter, its copy to the card, the record copies back.
               encoder-decoder family's split decode (``kv`` and
               ``cross_kv`` on their sequences, the decoder's blocks on
               the 16 "model" ranks), beside its gathered decode
-              (``GATHERED_STEP``).
+              (``GATHERED_STEP``).  The last three are FSDP
+              architectures: each cell's bytes per device beside the
+              step that gathered every FSDP leaf whole before the first
+              layer (``WHOLE_VIEW_STEP``), and below it.
 
 16. examples — every ``examples/torch_*.py`` through its ``main(argv)``
               on the card (``EXAMPLE_CARD_FORMS``): the quickstart; the
@@ -3580,6 +3592,9 @@ def split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps) -> dict:
         if not bit_equal(a, b_.cpu())]
     peak = torch.cuda.max_memory_allocated()
     del new_p, host
+    data = mesh.mesh_dim_names.index("data")
+    sharded = ["/".join(path) for path, t in tree_flatten_with_path(p_m)
+               if t.placements[data].is_shard()]
     pre = split_prefill_bits(cfg, p_m, p, serve, dev, reps=1)
     dec = split_decode_bits(cfg, p_m, p, serve, dev, steps=decode_steps)
     return dict(arch=cfg.name,
@@ -3598,6 +3613,7 @@ def split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps) -> dict:
                 decode_cache_placements=dec["cache_placements"],
                 decode_cache_seq=dict(kv=dec["cache_seq"],
                                       cross_kv=dec["cross_seq"]),
+                sharded_over_data=sharded,
                 bits_differ=diff + pre["bits_differ"] + dec["bits_differ"])
 
 
@@ -3711,6 +3727,58 @@ def encdec_split_bits(mesh, dev, layers=2, b=2, s=1024, src=1024,
     return split_bits_at_width(cfg, mesh, dev, batch, serve, decode_steps)
 
 
+def dense_split_bits(mesh, dev, layers=2, b=2, s=1024,
+                     decode_steps=2) -> dict:
+    """llama3-8b at its full width (d 4,096, 32 q / 8 kv heads of 128,
+    d_ff 14,336, vocabulary 128,256, bf16 parameters, f32 moments) and
+    ``layers`` layers on ``mesh``: one split train step over ``b`` ×
+    ``s`` tokens, the split prefill and ``decode_steps`` split decode
+    steps against the plain calls, bit for bit
+    (``split_bits_at_width``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticPipeline
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=layers)
+    batch = SyntheticPipeline(DataConfig(cfg.vocab_size, s, b, seed=17)
+                              ).batch(0, device=dev)
+    return split_bits_at_width(cfg, mesh, dev, batch,
+                               {"tokens": batch["tokens"]}, decode_steps)
+
+
+def fsdp_split_bits(mesh, dev, decode_steps=2) -> dict:
+    """The dense and MoE families at their full widths and cut depths
+    (``dense_split_bits``: llama3-8b × 2 layers; ``moe_split_bits``:
+    qwen2-moe-a2.7b × 2 layers, whose experts' "fsdp" dimension is dim 1
+    of a layer's slice) with FSDP forced (``FSDP_PARAM_THRESHOLD`` at 0
+    for the calls, as a test forces it) on ``mesh``: every stacked leaf
+    whose "fsdp" dimension lies over "data" held as the rank's shard and
+    gathered layer by layer (``models.fsdp``).  ``split_bits_at_width``
+    bit for bit, with the layer slices each call gathered
+    (``GATHER_COUNT``): each layer twice in the train step (forward and
+    recompute), once in each prefill (``split_prefill_bits``' and
+    ``split_decode_bits``') and in each decode call (one untimed and
+    ``decode_steps``)."""
+    import repro_torch.launch.train as train_mod
+    from repro_torch.models.fsdp import GATHER_COUNT
+    out = {}
+    threshold = train_mod.FSDP_PARAM_THRESHOLD
+    train_mod.FSDP_PARAM_THRESHOLD = 0
+    try:
+        for name, run in (("llama3_8b", dense_split_bits),
+                          ("qwen2_moe_a2_7b", moe_split_bits)):
+            t0 = time.perf_counter()
+            GATHER_COUNT["layers"] = 0
+            part = run(mesh, dev, decode_steps=decode_steps)
+            part.update(layer_gathers=GATHER_COUNT["layers"],
+                        layer_gathers_expected=(5 + decode_steps)
+                        * part["layers"],
+                        seconds=time.perf_counter() - t0)
+            out[name] = part
+    finally:
+        train_mod.FSDP_PARAM_THRESHOLD = threshold
+    return out
+
+
 def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
              s=256, steps=5):
     """Phase 14: the distributed training and serving paths on a one-rank
@@ -3731,6 +3799,7 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
     from repro_torch.launch import (make_mesh_from_devices, make_train_step,
                                     state_shardings, value_and_grad)
     from repro_torch.models import ModelZoo
+    from repro_torch.models.fsdp import STACKED
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.optim.compression import (compress, compressed_psum,
                                                ef_roundtrip)
@@ -3839,6 +3908,8 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
         row["zamba2_7b"] = hybrid_split_bits(mesh, dev)
         # 3g. the encoder-decoder family: the cross-attention, cross_kv
         row["seamless_m4t_large_v2"] = encdec_split_bits(mesh, dev)
+        # 3h. FSDP leaves held sharded, gathered layer by layer
+        row["fsdp"] = fsdp_split_bits(mesh, dev)
         emit(dict(phase="mesh", part="split", nvidia_smi=smi,
                   split_layout=row["split_layout"],
                   train_step_ms_median=row["mesh_step_ms_median"],
@@ -3849,12 +3920,21 @@ def run_mesh(dev, smi, ckpt_dir, ckpt_step=50, name="smollm-135m", b=8,
                   qwen2_moe_a2_7b=row["qwen2_moe_a2_7b"],
                   mamba2_370m=row["mamba2_370m"],
                   zamba2_7b=row["zamba2_7b"],
-                  seamless_m4t_large_v2=row["seamless_m4t_large_v2"]))
+                  seamless_m4t_large_v2=row["seamless_m4t_large_v2"],
+                  fsdp=row["fsdp"]))
         for part in (row["prefill"], row["reduced_llama3_8b"],
                      row["decode"], row["pixtral_12b"],
                      row["qwen2_moe_a2_7b"], row["mamba2_370m"],
-                     row["zamba2_7b"], row["seamless_m4t_large_v2"]):
+                     row["zamba2_7b"], row["seamless_m4t_large_v2"],
+                     *row["fsdp"].values()):
             assert not part["bits_differ"], part
+        # the FSDP parts: the stacked leaves stored over "data", each
+        # layer's slice gathered in every call
+        for part in row["fsdp"].values():
+            assert any(p.split("/")[0] in STACKED
+                       for p in part["sharded_over_data"]), part
+            assert part["layer_gathers"] == \
+                part["layer_gathers_expected"], part
 
         # 4. save from the mesh, re-mesh the survivors, resume
         resume_dir = Path(str(ckpt_dir) + "_mesh")
@@ -4142,6 +4222,18 @@ GATHERED_STEP = {
                                         "bytes_per_device": 188.288479272e9}}
 
 
+# The FSDP cells of phase 15 (b) as the step traced them when it gathered
+# every FSDP leaf whole before the first layer (PERF.md §6): bytes
+# per device (arguments + temporaries, single pod), from
+# scripts/torch_fsdp_dryrun_ab.py's dry run of the commit 735cc26 with fake
+# CUDA tensors on an H100 host.
+WHOLE_VIEW_STEP = {
+    ("qwen2-moe-a2.7b", "decode_32k"): {"bytes_per_device": 11.679053312e9},
+    ("zamba2-7b", "decode_32k"): {"bytes_per_device": 19.968585216e9},
+    ("seamless-m4t-large-v2", "decode_32k"): {
+        "bytes_per_device": 6.710942208e9}}
+
+
 def run_launch(dev, smi, serve_row, train_row):
     """Phase 15: the launch analysis (see the module docstring)."""
     import shutil
@@ -4200,6 +4292,11 @@ def run_launch(dev, smi, serve_row, train_row):
                                         / gathered["flops_per_device"])
             c["bytes_over_gathered"] = (c["bytes_per_device"]
                                         / gathered["bytes_per_device"])
+        whole = WHOLE_VIEW_STEP.get((arch, shape))
+        if whole is not None and c["flops_per_device"] is not None:
+            c["whole_view_step"] = whole
+            c["bytes_over_whole_view"] = (c["bytes_per_device"]
+                                          / whole["bytes_per_device"])
     row = dict(phase="launch", part="dryrun", nvidia_smi=smi, world=512,
                cells=cells, seconds=time.perf_counter() - t_phase)
     emit(row)
@@ -4213,6 +4310,11 @@ def run_launch(dev, smi, serve_row, train_row):
         if (c["arch"], c["shape"]) in GATHERED_STEP:
             assert c["flops_over_gathered"] < 1.0, c
             assert c["bytes_over_gathered"] < 1.0, c
+    # the FSDP cells hold their layer-gathered leaves as shards: below the
+    # step that gathered them whole
+    for c in cells:
+        if (c["arch"], c["shape"]) in WHOLE_VIEW_STEP:
+            assert c["bytes_over_whole_view"] < 1.0, c
     return dict(step=step, dryrun=row)
 
 

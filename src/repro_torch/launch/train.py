@@ -17,7 +17,12 @@ step as explicit collectives, where GSPMD partitions it under
    ``tp`` profile, for every family, each leaf
    that "model" splits in compute (``models.parallel.leaf_roles``) only
    over the other axes — the rank keeps its "model" shard — and every
-   other leaf in full;
+   other leaf in full; but a stacked leaf whose "fsdp" dimension is
+   stored sharded over a batch axis (FSDP: ``use_fsdp``, or the
+   ``zero3`` profile) stays this rank's shard, and the layer loops
+   gather one layer's slice of it at a time, inside the layer's
+   checkpoint (``models.fsdp``), as the reference's ``lax.scan`` takes
+   one layer's slice per iteration;
 2. it takes its slice of the batch — the batch dimension split over the
    profile's batch axes (``_profile``: the mesh's data axes, and "model"
    too for the ``dp`` and ``zero3`` profiles), with
@@ -30,10 +35,14 @@ step as explicit collectives, where GSPMD partitions it under
    leaf at a time in tree order (one all-reduce per axis); a leaf each
    rank used only column ranges of (the kv heads its q heads read, a
    Mamba2 block's heads and share of B and C in its fused ``in_proj``
-   and conv) is summed over "model" first;
+   and conv) is summed over "model" first; a layer-gathered leaf's
+   gradient comes out of backward as this rank's shard, reduce-scattered
+   layer by layer over the axes that shard it, and is all-reduced over
+   the other batch axes only;
 4. AdamW runs on each rank's shard of every leaf, with the norm of the
-   full gradients (the split leaves' squared norms summed over "model"
-   in one all-reduce);
+   full gradients (the layer-gathered leaves' squared norms summed over
+   the batch axes that shard them, one all-reduce per axis, then the
+   split leaves' over "model" in one all-reduce);
 5. the loss is the mean over those ranks.
 
 So under ``tp`` ranks along "model" hold and compute their share of the
@@ -99,6 +108,8 @@ from repro_torch._tree import (tree_flatten_with_path, tree_leaves,
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.launch.mesh import dp_axes_of
 from repro_torch.models import ModelZoo, materialize
+from repro_torch.models.fsdp import (STACKED, AxisGather, LayerGather,
+                                     LeafGather, put_ranges, take_ranges)
 from repro_torch.models.layers import (abstract, dtype_of, fake_dtensor,
                                        fit_spec_to_shape, pspec_tree,
                                        resolve_spec, spec_placements)
@@ -150,6 +161,7 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamWConfig] = None):
     zoo = ModelZoo(cfg)
     opt = opt or AdamWConfig(moment_dtype=cfg.opt_moment_dtype)
     loss_and_grads = value_and_grad(zoo.train_loss)
+    plan = _planner(cfg)
 
     def train_step(params, opt_state, batch, step):
         if _is_dtensor(step):
@@ -157,8 +169,8 @@ def make_train_step(cfg: ArchConfig, opt: Optional[AdamWConfig] = None):
         lr_scale = lr_schedule(step) / opt.lr
         mesh = _mesh_of(params)
         if mesh is not None:
-            return _mesh_step(mesh, cfg, loss_and_grads, opt, params,
-                              opt_state, batch, step, lr_scale)
+            return _mesh_step(mesh, cfg, plan(mesh, params), loss_and_grads,
+                              opt, params, opt_state, batch, step, lr_scale)
         loss, grads = loss_and_grads(params, batch)
         new_params, new_opt, gnorm = adamw_update(
             grads, opt_state, params, opt, lr_scale=lr_scale)
@@ -282,10 +294,98 @@ def _compute_view(p, role, mesh):
     if role[0] == "split":
         return p.redistribute(mesh, _model_placements(p, mesh, role[1])
                               ).to_local()
-    _, dim, ranges = role
-    full = p.full_tensor()
-    parts = [full.narrow(dim, lo, hi - lo) for lo, hi in ranges]
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+    return take_ranges(p.full_tensor(), role[1], role[2])
+
+
+def _layer_gather(cfg, mesh, params, roles, axes):
+    """The ``LayerGather`` of a step on ``mesh``, or None where it holds
+    no leaf as a shard.  A stacked leaf (``models.fsdp.STACKED``) whose
+    "fsdp" dimension is stored sharded over a batch axis of the step
+    (``axes``) is held as this rank's shard and gathered layer by layer:
+    over every axis that shards it but "model" where the rank computes
+    with its "model" shard (``roles``), the inner axis first."""
+    names = mesh.mesh_dim_names
+    leaves = {}
+    for (path, p), role, d in zip(tree_flatten_with_path(params),
+                                  tree_leaves(roles),
+                                  tree_leaves(ModelZoo(cfg).param_defs())):
+        fsdp = d.spec.index("fsdp") if "fsdp" in d.spec else None
+        if path[0] not in STACKED or fsdp is None or not any(
+                pl.is_shard(fsdp) and names[i] in axes
+                for i, pl in enumerate(p.placements)):
+            continue
+        keep = None
+        if role is not None and role[0] == "split":
+            keep = names.index("model")
+            _model_placements(p, mesh, role[1])   # checks the placement
+        steps = []
+        for i in reversed(range(mesh.ndim)):
+            pl = p.placements[i]
+            if not pl.is_shard() or i == keep:
+                continue
+            if p.shape[pl.dim] % mesh.size(i):
+                raise ValueError(f"{'/'.join(path)} of shape "
+                                 f"{tuple(p.shape)} is sharded unevenly "
+                                 f"over {names[i]!r}")
+            steps.append(AxisGather(mesh.get_group(names[i]), mesh.size(i),
+                                    mesh.get_local_rank(names[i]),
+                                    pl.dim - p.ndim, names[i] in axes))
+        ranges, group, size = None, None, 1
+        if role is not None and role[0] == "slice":
+            ranges = (role[1], role[2])
+            group, size = mesh.get_group("model"), mesh.size(
+                names.index("model"))
+        shards = tuple(names[i] for i, pl in enumerate(p.placements)
+                       if pl.is_shard())
+        leaves[path] = LeafGather(shards, tuple(steps), ranges, group, size)
+    return LayerGather(leaves) if leaves else None
+
+
+@dataclasses.dataclass(frozen=True)
+class _StepPlan:
+    """How a step on a mesh computes with its parameters: this rank's
+    ``TensorParallel`` (None where no compute splits,
+    :func:`_tensor_parallel`), every leaf's role by path (None where
+    none splits), and the ``LayerGather`` (None where no leaf is held as
+    a shard, :func:`_layer_gather`)."""
+    tp: Optional[TensorParallel]
+    roles: dict
+    fsdp: Optional[LayerGather]
+
+    def held(self, path) -> Tuple[str, ...]:
+        """The mesh axes the leaf at ``path`` is held sharded over, and
+        its gradient comes out of backward sharded over; () for a leaf
+        the step takes as its compute view."""
+        return () if self.fsdp is None else self.fsdp.held(path)
+
+    def work(self, params, mesh):
+        """The tensors the step computes with: this rank's shard of a
+        held leaf, every other leaf's compute view."""
+        flat = tree_flatten_with_path(params)
+        return tree_unflatten([path for path, _ in flat], [
+            p.to_local() if self.held(path)
+            else _compute_view(p, self.roles[path], mesh)
+            for path, p in flat])
+
+
+def _planner(cfg: ArchConfig) -> Callable:
+    """``plan(mesh, params)``: the :class:`_StepPlan` of a step of
+    ``cfg``, built once per mesh and placement of the parameters."""
+    plans = {}
+
+    def plan(mesh, params) -> _StepPlan:
+        key = (mesh, tuple(p.placements for p in tree_leaves(params)))
+        if key not in plans:
+            tp, roles = _tensor_parallel(cfg, mesh, params)
+            if roles is None:
+                roles = tree_map(lambda p: None, params)
+            plans[key] = _StepPlan(
+                tp, dict(tree_flatten_with_path(roles)),
+                _layer_gather(cfg, mesh, params, roles,
+                              _batch_axes(cfg, mesh)))
+        return plans[key]
+
+    return plan
 
 
 def _storage_shard(g, p, role, mesh):
@@ -300,8 +400,17 @@ def _storage_shard(g, p, role, mesh):
     return _local_shard(g, mesh, p.placements)
 
 
-def _mesh_step(mesh, cfg, loss_and_grads, opt, params, opt_state, batch,
-               step, lr_scale):
+def _mesh_step(mesh, cfg, plan, loss_and_grads, opt, params, opt_state,
+               batch, step, lr_scale):
+    """The train step on ``mesh`` (the module docstring's steps 1-5) by
+    ``plan`` (:class:`_StepPlan`).
+    Its metrics count the all-reduces it issues after backward:
+    ``all_reduces`` over the batch axes (each gradient leaf over every
+    batch axis that does not shard it, the loss, and the norm's one per
+    axis that shards a layer-gathered leaf), ``model_all_reduces`` over
+    "model" (each sliced leaf the step takes as its compute view, and
+    the norm's); the layers' collectives and the layer gathers' are not
+    counted."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     local = lambda t: t.to_local() if _is_dtensor(t) else t
@@ -314,47 +423,63 @@ def _mesh_step(mesh, cfg, loss_and_grads, opt, params, opt_state, batch,
                                   stride=ref.stride())
 
     axes = _batch_axes(cfg, mesh)
-    tp, roles = _tensor_parallel(cfg, mesh, params)
-    if roles is None:
-        roles = tree_map(lambda p: None, params)
-    work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
+    tp = plan.tp
+    work = plan.work(params, mesh)
     local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
     loss, grads = loss_and_grads(work, local_batch, tp,
-                                 _batch_split(cfg, batch, axes, mesh))
+                                 _batch_split(cfg, batch, axes, mesh),
+                                 plan.fsdp)
     del work
     n_dp = math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
-    flat = tree_flatten_with_path(grads)
-    role_of = tree_leaves(roles)
+    paths = [path for path, _ in tree_flatten_with_path(grads)]
+    role_of = [plan.roles[path] for path in paths]
+    held_of = [plan.held(path) for path in paths]
     shapes = [p.shape for p in tree_leaves(params)]
     reduced, reduces, model_reduces = [], 0, 0
     with torch.no_grad():
-        for t, role, shape in zip([g for _, g in flat] + [loss],
-                                  role_of + [None], shapes + [None]):
+        for t, role, h, shape in zip(tree_leaves(grads) + [loss],
+                                     role_of + [None], held_of + [()],
+                                     shapes + [None]):
+            if h:
+                # a layer-gathered leaf: this rank's shard, already
+                # summed over the axes that shard it
+                t = t.contiguous()
+                for axis in axes:
+                    if axis not in h:
+                        dist.all_reduce(t, group=mesh.get_group(axis))
+                        reduces += 1
+                reduced.append(t.div_(n_dp))
+                continue
             if role is not None and role[0] == "slice":
                 # the columns this rank read (the kv heads its q heads
                 # read; a Mamba2 block's heads and share of B and C),
                 # summed over "model"
-                _, dim, ranges = role
-                full = t.new_zeros(shape)
-                at = 0
-                for lo, hi in ranges:
-                    full.narrow(dim, lo, hi - lo).copy_(
-                        t.narrow(dim, at, hi - lo))
-                    at += hi - lo
-                dist.all_reduce(full, group=tp.group)
+                t = put_ranges(t, shape, role[1], role[2])
+                dist.all_reduce(t, group=tp.group)
                 model_reduces += 1
-                t = full
             t = t.contiguous()
             for axis in axes:
                 dist.all_reduce(t, group=mesh.get_group(axis))
                 reduces += 1
             reduced.append(t.div_(n_dp))
         loss = reduced.pop()
-        # the global norm, each split leaf's squared norm summed over
-        # "model" (one all-reduce), the sum in tree order as global_norm
+        # the global norm: each layer-gathered leaf's squared norm summed
+        # over the batch axes that shard it (one all-reduce per axis),
+        # then each split leaf's over "model" (one all-reduce), the sum
+        # in tree order as global_norm
         sq = [torch.sum(g.float() ** 2) for g in reduced]
-        split = [i for i, r in enumerate(role_of)
-                 if r is not None and r[0] == "split"]
+        names = mesh.mesh_dim_names
+        for axis in axes:
+            part_of = [i for i, h in enumerate(held_of) if axis in h]
+            if part_of and mesh.size(names.index(axis)) > 1:
+                part = torch.stack([sq[i] for i in part_of])
+                dist.all_reduce(part, group=mesh.get_group(axis))
+                reduces += 1
+                for j, i in enumerate(part_of):
+                    sq[i] = part[j]
+        split = [i for i, (r, h) in enumerate(zip(role_of, held_of))
+                 if (r is not None and r[0] == "split")
+                 or ("model" in h and "model" not in axes)]
         if split and tp.size > 1:
             part = torch.stack([sq[i] for i in split])
             dist.all_reduce(part, group=tp.group)
@@ -362,9 +487,9 @@ def _mesh_step(mesh, cfg, loss_and_grads, opt, params, opt_state, batch,
             for j, i in enumerate(split):
                 sq[i] = part[j]
         gnorm = torch.sqrt(sum(sq))
-        grads = tree_unflatten([path for path, _ in flat], reduced)
-        shards = tree_map(lambda g, p, r: _storage_shard(g, p, r, mesh),
-                          grads, params, roles)
+        shards = tree_unflatten(paths, [
+            g if h else _storage_shard(g, p, r, mesh) for g, p, r, h in zip(
+                reduced, tree_leaves(params), role_of, held_of)])
     del grads, reduced
     new_p, new_opt, gnorm = adamw_apply(
         shards, tree_map(local, opt_state), tree_map(local, params), opt,
@@ -491,8 +616,9 @@ def _cache_global(t, cfg: ArchConfig, mesh, path, shape,
     return DTensor.from_local(t, mesh, want, run_check=False)
 
 
-def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
-    """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh: this
+def _mesh_serve(mesh, cfg, plan, call, params, batch, caches=None):
+    """``call`` (the zoo's ``prefill`` or ``decode``) on a mesh by
+    ``plan`` (:class:`_StepPlan`): this
     rank's slice of the batch, the logits as a DTensor sharded on the
     batch.  Under the ``tp`` profile both split over "model" as the
     train step does (``_tensor_parallel``) and the caches go in and out
@@ -505,29 +631,29 @@ def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     prefill turns its per-rank kv heads into that layout
     (:func:`_prefill_kv_shards`), and its states are each rank's heads.
     Otherwise (other profiles) the parameters are gathered and the
-    caches go in and out as each rank's slice of the batch."""
+    caches go in and out as each rank's slice of the batch.  Under any
+    profile the FSDP-stored stacked leaves stay this rank's shards, each
+    layer's slice gathered in the layer loop (:func:`_layer_gather`)."""
     axes = _batch_axes(cfg, mesh)
     dims = _cache_batch_dims(cfg)
-    tp, roles = _tensor_parallel(cfg, mesh, params)
-    if roles is None:
-        roles = tree_map(lambda p: None, params)
-    work = tree_map(lambda p, r: _compute_view(p, r, mesh), params, roles)
+    tp, fsdp, work = plan.tp, plan.fsdp, plan.work(params, mesh)
     b = next(iter(batch.values())).shape[0]
     local_batch = tree_map(lambda x: _batch_local(x, 0, axes, mesh), batch)
     split = _batch_split(cfg, batch, axes, mesh)
     if tp is None:
         if caches is None:
-            logits, new_caches = call(work, local_batch, batch_split=split)
+            logits, new_caches = call(work, local_batch, batch_split=split,
+                                      fsdp=fsdp)
         else:
             logits, new_caches = call(work, tree_map(
                 lambda c, d: _batch_local(c, d, axes, mesh), caches, dims),
-                local_batch, batch_split=split)
+                local_batch, batch_split=split, fsdp=fsdp)
         del work
         return (_batch_global(logits, 0, axes, mesh, b),
                 tree_map(lambda c, d: _batch_global(c, d, axes, mesh, b),
                          new_caches, dims))
     if caches is None:
-        logits, new_caches = call(work, local_batch, tp, split)
+        logits, new_caches = call(work, local_batch, tp, split, fsdp)
         shapes = _prefill_cache_shapes(cfg, batch, b)
         for k in _KV_KEYS:
             if k in new_caches:
@@ -538,7 +664,7 @@ def _mesh_serve(mesh, cfg, call, params, batch, caches=None):
     else:
         shards, tp = _cache_shards(cfg, mesh, caches, tp)
         shapes = {path: c.shape for path, c in tree_flatten_with_path(caches)}
-        logits, new_caches = call(work, shards, local_batch, tp, split)
+        logits, new_caches = call(work, shards, local_batch, tp, split, fsdp)
     del work
     flat = tree_flatten_with_path(new_caches)
     return (_batch_global(logits, 0, axes, mesh, b),
@@ -595,11 +721,13 @@ def widen_mesh_caches(cfg: ArchConfig, caches: dict) -> dict:
 
 def make_prefill_step(cfg: ArchConfig):
     zoo = ModelZoo(cfg)
+    plan = _planner(cfg)
 
     def prefill_step(params, batch):
         mesh = _mesh_of(params)
         if mesh is not None:
-            return _mesh_serve(mesh, cfg, zoo.prefill, params, batch)
+            return _mesh_serve(mesh, cfg, plan(mesh, params), zoo.prefill,
+                               params, batch)
         return zoo.prefill(params, batch)
 
     return prefill_step
@@ -607,11 +735,13 @@ def make_prefill_step(cfg: ArchConfig):
 
 def make_decode_step(cfg: ArchConfig):
     zoo = ModelZoo(cfg)
+    plan = _planner(cfg)
 
     def decode_step(params, caches, batch):
         mesh = _mesh_of(params)
         if mesh is not None:
-            return _mesh_serve(mesh, cfg, zoo.decode, params, batch, caches)
+            return _mesh_serve(mesh, cfg, plan(mesh, params), zoo.decode,
+                               params, batch, caches)
         return zoo.decode(params, caches, batch)
 
     return decode_step

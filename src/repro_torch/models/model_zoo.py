@@ -70,39 +70,42 @@ class ModelZoo:
         return out
 
     # ------------------------------------------------------------- fwd paths
-    def train_loss(self, params, batch, tp=None,
-                   batch_split=None) -> torch.Tensor:
+    def train_loss(self, params, batch, tp=None, batch_split=None,
+                   fsdp=None) -> torch.Tensor:
         """Mean next-token cross-entropy over the batch (``tokens``,
         ``labels``, and the family's embeddings) + 0.01 · the MoE
         balance term.  ``tp``: tensor-parallel compute over "model"
         (``models.parallel``; ``params`` then holds this rank's shards
         of the split leaves); the loss is the same on every rank.
         ``batch_split``: the data ranks ``batch`` is this rank's slice
-        of (``models.parallel.BatchSplit``; the MoE block's groups)."""
+        of (``models.parallel.BatchSplit``; the MoE block's groups).
+        ``fsdp`` (``models.fsdp.LayerGather``): the stacked leaves it
+        names are this rank's shards, gathered layer by layer."""
         cfg = self.cfg
         hidden, _, aux = lm_forward(params, batch, cfg, mode="train", tp=tp,
-                                    batch_split=batch_split)
+                                    batch_split=batch_split, fsdp=fsdp)
         head = params["embed"].T if cfg.tie_embeddings else params["head"]
         loss = chunked_xent(hidden, head, batch["labels"], cfg.loss_chunk,
                             valid_vocab=cfg.vocab_size, tp=tp)
         return loss + 0.01 * aux
 
-    def prefill(self, params, batch, tp=None, batch_split=None):
+    def prefill(self, params, batch, tp=None, batch_split=None, fsdp=None):
         """Full-sequence forward: (last-position logits (B, 1, vocab) f32,
         caches).  Under ``tp`` the logits are whole on every rank and the
         K/V caches hold this rank's kv heads."""
         hidden, caches, _ = lm_forward(params, batch, self.cfg,
                                        mode="prefill", tp=tp,
-                                       batch_split=batch_split)
+                                       batch_split=batch_split, fsdp=fsdp)
         return self._last_logits(params, hidden, tp), caches
 
-    def decode(self, params, caches, batch, tp=None, batch_split=None):
+    def decode(self, params, caches, batch, tp=None, batch_split=None,
+               fsdp=None):
         """One token per sequence against ``caches`` (widened by the
         caller): (logits (B, 1, vocab) f32, new caches).  Under ``tp``
         the logits are whole on every rank and, with ``tp.kv_seq``, the
         K/V caches this rank's slice of their sequence."""
         hidden, new_caches = lm_decode_step(params, caches, batch, self.cfg,
-                                            tp, batch_split)
+                                            tp, batch_split, fsdp)
         return self._last_logits(params, hidden, tp), new_caches
 
     def _last_logits(self, params, hidden, tp=None):

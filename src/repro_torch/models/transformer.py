@@ -27,7 +27,9 @@ encoder-decoder's ``cross_kv`` where ``tp.cross_seq`` does, the SSM and
 hybrid families' state caches on the rank's heads, and its batch's
 slice on a mesh.  On a mesh
 the MoE block forms its token groups over the global batch
-(``batch_split``, ``models.moe``).
+(``batch_split``, ``models.moe``), and the stacked leaves stored
+sharded over the batch axes (FSDP) come as this rank's shards, each
+layer's slice gathered inside its body (``fsdp``, ``models.fsdp``).
 """
 from __future__ import annotations
 
@@ -456,13 +458,31 @@ def _remat(body, cfg, mode: str):
                              preserve_rng_state=False, **kw)
 
 
+def _gathered(body, gather):
+    """``body`` taking a layer's parameters as ``gather`` turns them into
+    the tensors it computes with (``models.fsdp``: this rank's shards
+    gathered over the axes that hold them); ``body`` itself where
+    ``gather`` is None."""
+    if gather is None:
+        return body
+    return lambda lp, *args: body(gather(lp), *args)
+
+
+def _gather_at(fsdp, key: str):
+    """``fsdp``'s gather of one layer of the stack ``key``, or None."""
+    return None if fsdp is None else fsdp.at(key)
+
+
 def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True,
-                tp=None, batch_split=None):
+                tp=None, batch_split=None, gather=None):
     """Apply stacked layers in order, threading per-layer caches in and
     out.  Returns (x, stacked new caches or None in train mode, summed
-    aux).  A layer's recompute under its checkpoint runs its collectives
-    again, in the same order on every rank."""
-    body = _remat(block_apply, cfg, mode) if remat else block_apply
+    aux).  ``gather`` (``models.fsdp``): each layer's parameters are
+    gathered from this rank's shards inside the layer's body.  A
+    layer's recompute under its checkpoint runs its collectives (and its
+    gather) again, in the same order on every rank."""
+    body = _gathered(block_apply, gather)
+    body = _remat(body, cfg, mode) if remat else body
     layers = _unstack(layers_params)
     caches = [None] * len(layers) if caches is None else _unstack(caches)
     new, aux = [], 0.0
@@ -474,7 +494,7 @@ def _run_layers(layers_params, x, cfg, mode, caches=None, remat=True,
 
 
 def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
-               tp=None, batch_split=None):
+               tp=None, batch_split=None, fsdp=None):
     """Forward over a full sequence, ``mode`` "train" or "prefill".
 
     Returns (hidden (B,S,d), caches (prefill) or None (train), aux).
@@ -489,12 +509,15 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     rank's heads (the conv tails every channel).  ``batch_split``
     (:class:`~repro_torch.models.parallel.BatchSplit`): the data ranks
     ``inputs`` is this rank's slice of, for the MoE block's groups.
+    ``fsdp`` (:class:`~repro_torch.models.fsdp.LayerGather`): the
+    stacked leaves it names are this rank's shards, gathered layer by
+    layer.
     """
     _check_tp(tp, cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"lm_forward: mode={mode!r}")
     if cfg.family == "encdec":
-        return _encdec_forward(params, inputs, cfg, mode, tp)
+        return _encdec_forward(params, inputs, cfg, mode, tp, fsdp)
 
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
     if cfg.family == "vlm" and cfg.num_patch_tokens and "patch_embeds" in inputs:
@@ -503,10 +526,11 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
         x[:, :pe.shape[1]] = pe   # patch embeddings overwrite the first slots
 
     if cfg.family == "hybrid":
-        return _hybrid_forward(params, x, cfg, mode, tp)
+        return _hybrid_forward(params, x, cfg, mode, tp, fsdp)
 
     x, new_caches, aux = _run_layers(params["layers"], x, cfg, mode, tp=tp,
-                                     batch_split=batch_split)
+                                     batch_split=batch_split,
+                                     gather=_gather_at(fsdp, "layers"))
     x = rmsnorm(x, params["final_norm"])
     if mode == "train":
         return x, None, aux
@@ -514,18 +538,20 @@ def lm_forward(params, inputs: Dict[str, Any], cfg, mode: str = "train",
     return x, {key: new_caches}, aux
 
 
-def _hybrid_forward(params, x, cfg, mode, tp=None):
+def _hybrid_forward(params, x, cfg, mode, tp=None, fsdp=None):
     """The shared block then a group of Mamba2 layers, group by group
     (each group one checkpoint: its recompute issues the group's
-    collectives again, in the same order on every rank), then the
-    tail."""
+    collectives, and gathers its layers, again, in the same order on
+    every rank), then the tail."""
     tail = hybrid_layout(cfg)[2]
     x0 = x
+    gather = _gather_at(fsdp, "groups")
 
     def group_body(gp, x):
         x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg, mode,
                                   tp=tp)
-        x, st, a = _run_layers(gp, x, cfg, mode, remat=False, tp=tp)
+        x, st, a = _run_layers(gp, x, cfg, mode, remat=False, tp=tp,
+                               gather=gather)
         return x, kv, st, a
 
     group_body = _remat(group_body, cfg, mode)
@@ -536,7 +562,8 @@ def _hybrid_forward(params, x, cfg, mode, tp=None):
         states.append(st)
         aux = aux + a
     if tail:
-        x, tail_states, a = _run_layers(params["tail"], x, cfg, mode, tp=tp)
+        x, tail_states, a = _run_layers(params["tail"], x, cfg, mode, tp=tp,
+                                        gather=_gather_at(fsdp, "tail"))
         aux = aux + a
     x = rmsnorm(x, params["final_norm"])
     if mode == "train":
@@ -567,19 +594,21 @@ def _dec_layer(lp, x, memory, cfg, mode, tp=None):
     return x, (torch.stack(kv), torch.stack(xkv))
 
 
-def _encdec_forward(params, inputs, cfg, mode, tp=None):
+def _encdec_forward(params, inputs, cfg, mode, tp=None, fsdp=None):
     """The encoder over ``src_embeds``, then the decoder over ``tokens``
     attending to the encoder's output; each encoder and decoder layer one
-    checkpoint, whose recompute issues its collectives again, in the
-    same order on every rank."""
+    checkpoint, whose recompute issues its collectives (and its gather)
+    again, in the same order on every rank."""
     memory = inputs["src_embeds"].to(torch.bfloat16)
-    enc_body = _remat(_enc_layer, cfg, mode)
+    enc_body = _remat(_gathered(_enc_layer, _gather_at(fsdp, "encoder")),
+                      cfg, mode)
     for lp in _unstack(params["encoder"]):
         memory = enc_body(lp, memory, cfg, tp)
     memory = rmsnorm(memory, params["enc_final_norm"])
 
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
-    dec_body = _remat(_dec_layer, cfg, mode)
+    dec_body = _remat(_gathered(_dec_layer, _gather_at(fsdp, "decoder")),
+                      cfg, mode)
     caches = []
     for lp in _unstack(params["decoder"]):
         x, c = dec_body(lp, x, memory, cfg, mode, tp)
@@ -602,7 +631,8 @@ def _check_tp(tp, cfg):
                          f"not {cfg.family!r}")
 
 
-def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
+def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None,
+                   fsdp=None):
     """One-token decode. inputs: tokens (B,1). Returns (hidden, new caches).
 
     ``tp`` (every family): the parameters are this rank's shards of the
@@ -612,45 +642,51 @@ def lm_decode_step(params, caches, inputs, cfg, tp=None, batch_split=None):
     rank's slice of the source's sequence, returned as it came; the SSM
     states (the hybrid's groups' and tail's) this rank's heads and the
     conv tails every channel.
-    ``batch_split``: as :func:`lm_forward`'s."""
+    ``batch_split`` and ``fsdp``: as :func:`lm_forward`'s."""
     _check_tp(tp, cfg)
     x = hidden_for_tokens(params, inputs["tokens"], cfg, tp)
 
     if cfg.family in ("dense", "vlm", "moe"):
         x, new_kv, _ = _run_layers(params["layers"], x, cfg, "decode",
                                    caches["kv"], tp=tp,
-                                   batch_split=batch_split)
+                                   batch_split=batch_split,
+                                   gather=_gather_at(fsdp, "layers"))
         return rmsnorm(x, params["final_norm"]), {"kv": new_kv}
 
     if cfg.family == "ssm":
         x, new_st, _ = _run_layers(params["layers"], x, cfg, "decode",
-                                   caches["mamba"], tp=tp)
+                                   caches["mamba"], tp=tp,
+                                   gather=_gather_at(fsdp, "layers"))
         return rmsnorm(x, params["final_norm"]), {"mamba": new_st}
 
     if cfg.family == "hybrid":
         tail = hybrid_layout(cfg)[2]
         x0 = x
         kvs, states = [], []
+        gather = _gather_at(fsdp, "groups")
         for gp, kv, st in zip(_unstack(params["groups"]),
                               _unstack(caches["shared_kv"]),
                               _unstack(caches["mamba"])):
             x, kv = shared_attn_apply(params["shared_attn"], x, x0, cfg,
                                       "decode", kv, tp)
-            x, st, _ = _run_layers(gp, x, cfg, "decode", st, tp=tp)
+            x, st, _ = _run_layers(gp, x, cfg, "decode", st, tp=tp,
+                                   gather=gather)
             kvs.append(kv)
             states.append(st)
         new_caches = {"shared_kv": torch.stack(kvs), "mamba": _stack(states)}
         if tail:
             x, new_caches["mamba_tail"], _ = _run_layers(
                 params["tail"], x, cfg, "decode", caches["mamba_tail"],
-                tp=tp)
+                tp=tp, gather=_gather_at(fsdp, "tail"))
         return rmsnorm(x, params["final_norm"]), new_caches
 
     if cfg.family == "encdec":
         kvs = []
+        gather = _gather_at(fsdp, "decoder") or (lambda lp: lp)
         for lp, kv, xkv in zip(_unstack(params["decoder"]),
                                _unstack(caches["kv"]),
                                _unstack(caches["cross_kv"])):
+            lp = gather(lp)
             a, kv = attn_decode_apply(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
                                       kv, tp=tp)
             x = x + a
